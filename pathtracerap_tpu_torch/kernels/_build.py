@@ -1,0 +1,90 @@
+"""Build and load the CUDA kernels of ``csrc/``.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, loaded with ``ctypes``.  The build happens at first use into
+``build/pathtracerap_tpu_torch/`` beside the package and is keyed by a hash
+of the sources and flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.  Each C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :func:`check` raises on non-zero.
+
+The traversal keeps IEEE semantics: no ``--use_fast_math`` (the accept
+chain relies on NaN comparing false), and ``-fmad=false`` so that a
+``a * b + c`` in the kernels rounds twice, as the plain PyTorch versions'
+separate elementwise ops do; the kernels call ``fmaf`` where the plain
+versions fuse (matrix products, ``addcmul``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "pathtracerap_tpu_torch"
+ARCH = "arch=compute_90a,code=sm_90a"
+
+FLAGS = [
+    "-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v", "-lineinfo",
+]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ptt_trace_list.restype = i
+    lib.ptt_trace_list.argtypes = [p, p, i, p, i, i, i, i, p, p, p]
+    lib.ptt_bounce.restype = i
+    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p, p]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    lib.ptt_error_string.argtypes = [i]
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    so = BUILD_DIR / f"libptt_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)],
+            capture_output=True, text=True,
+        )
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(tmp, so)
+    _lib = _bind(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def build_log() -> str:
+    """nvcc's output for the loaded library (with ``-Xptxas -v``: the
+    registers and shared memory of each kernel)."""
+    log = Path(library()._name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check(err: int, what: str) -> None:
+    if err:
+        msg = library().ptt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err}: {msg}")

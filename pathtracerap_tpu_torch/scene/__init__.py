@@ -1,0 +1,12 @@
+from .build import SceneBuilder, build_reference_scene
+from .types import Material, MaterialType, SceneDevice, SceneHost, WorldTriangles
+
+__all__ = [
+    "SceneBuilder",
+    "build_reference_scene",
+    "Material",
+    "MaterialType",
+    "SceneDevice",
+    "SceneHost",
+    "WorldTriangles",
+]

@@ -1,0 +1,182 @@
+"""Scene assembly (port of ``pathtracerap_tpu/scene/build.py``).
+
+:class:`SceneBuilder` accumulates meshes and instances and finalizes into
+the NumPy :class:`~pathtracerap_tpu_torch.scene.types.SceneHost`;
+:func:`build_reference_scene` reproduces the reference scene from data.
+Transform conventions match glm (column vectors, ``T @ R @ S``).  The
+uniform-grid build of the reference package is left out: it serves only
+the parity DDA engine, which this package does not have yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from pathtracerap_tpu import constants
+from pathtracerap_tpu.io.obj import ObjMesh, load_obj
+
+from .types import Material, MaterialType, SceneHost
+
+ASSET_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "assets",
+    "meshes",
+)
+
+
+def scale_matrix(s: Sequence[float]) -> np.ndarray:
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0], m[1, 1], m[2, 2] = s
+    return m
+
+
+def translation_matrix(t: Sequence[float]) -> np.ndarray:
+    m = np.eye(4, dtype=np.float64)
+    m[:3, 3] = t
+    return m
+
+
+def rotation_y_matrix(degrees: float) -> np.ndarray:
+    r = np.deg2rad(degrees)
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0], m[0, 2] = c, s
+    m[2, 0], m[2, 2] = -s, c
+    return m
+
+
+def trs(translate, rotate_y_deg, scale) -> np.ndarray:
+    """glm-style ``T * R * S`` (scale applied first)."""
+    return translation_matrix(translate) @ rotation_y_matrix(rotate_y_deg) @ scale_matrix(scale)
+
+
+class SceneBuilder:
+    """Accumulates meshes + instances, finalizes to :class:`SceneHost`."""
+
+    def __init__(self):
+        self._meshes: List[ObjMesh] = []
+        self._instances: List[dict] = []
+
+    def add_mesh(self, mesh: ObjMesh) -> int:
+        self._meshes.append(mesh)
+        return len(self._meshes) - 1
+
+    def add_mesh_file(self, path: str, scale: float = constants.BASE_MODEL_SCALE) -> int:
+        """Load a pre-triangulated OBJ file (``pathtracerap_tpu.io.obj``)."""
+        return self.add_mesh(load_obj(path, scale=scale))
+
+    def add_instance(
+        self,
+        mesh_index: int,
+        material: Material,
+        transform: Optional[np.ndarray] = None,
+        translate=(0.0, 0.0, 0.0),
+        rotate_y_deg: float = 0.0,
+        scale=(1.0, 1.0, 1.0),
+    ) -> int:
+        if transform is None:
+            transform = trs(translate, rotate_y_deg, scale)
+        self._instances.append(
+            dict(mesh_index=mesh_index, material=material, transform=np.asarray(transform))
+        )
+        return len(self._instances) - 1
+
+    def build(self) -> SceneHost:
+        if not self._instances:
+            raise ValueError("scene has no model instances")
+
+        # concatenate mesh geometry into global pools
+        vertex_pos, vertex_nrm, tri_vidx = [], [], []
+        mesh_tri_start, mesh_tri_end = [], []
+        mesh_bbox_min, mesh_bbox_max = [], []
+        v_off = 0
+        t_off = 0
+        for mesh in self._meshes:
+            vertex_pos.append(mesh.positions)
+            vertex_nrm.append(mesh.normals)
+            tri_vidx.append(mesh.triangles + v_off)
+            mesh_tri_start.append(t_off)
+            t_off += mesh.num_triangles
+            mesh_tri_end.append(t_off)
+            mesh_bbox_min.append(mesh.bbox_min)
+            mesh_bbox_max.append(mesh.bbox_max)
+            v_off += mesh.num_vertices
+
+        n_inst = len(self._instances)
+        model_mesh = np.zeros(n_inst, np.int32)
+        m2w = np.zeros((n_inst, 4, 4), np.float32)
+        w2m = np.zeros((n_inst, 4, 4), np.float32)
+        mat_type = np.zeros(n_inst, np.int32)
+        mat_color = np.zeros((n_inst, 3), np.float32)
+        mat_ri = np.ones(n_inst, np.float32)
+        mat_refl = np.zeros(n_inst, np.float32)
+        for i, inst in enumerate(self._instances):
+            model_mesh[i] = inst["mesh_index"]
+            m = np.asarray(inst["transform"], np.float64)
+            m2w[i] = m.astype(np.float32)
+            # inverted in float64 then cast (the reference inverts in f32)
+            w2m[i] = np.linalg.inv(m).astype(np.float32)
+            mat = inst["material"]
+            mat_type[i] = int(mat.material_type)
+            mat_color[i] = np.asarray(mat.color, np.float32)
+            mat_ri[i] = mat.refractive_index
+            mat_refl[i] = mat.reflectivity
+
+        return SceneHost(
+            vertex_pos=np.concatenate(vertex_pos).astype(np.float32),
+            vertex_nrm=np.concatenate(vertex_nrm).astype(np.float32),
+            tri_vidx=np.concatenate(tri_vidx).astype(np.int32),
+            mesh_tri_start=np.asarray(mesh_tri_start, np.int32),
+            mesh_tri_end=np.asarray(mesh_tri_end, np.int32),
+            mesh_bbox_min=np.stack(mesh_bbox_min).astype(np.float32),
+            mesh_bbox_max=np.stack(mesh_bbox_max).astype(np.float32),
+            model_mesh=model_mesh,
+            model_to_world=m2w,
+            world_to_model=w2m,
+            mat_type=mat_type,
+            mat_color=mat_color,
+            mat_refractive_index=mat_ri,
+            mat_reflectivity=mat_refl,
+        )
+
+
+def build_reference_scene(asset_dir: Optional[str] = None) -> SceneHost:
+    """The reference's hard-coded scene, expressed as data: 3 meshes and 11
+    model instances with the exact TRS parameters, colors and material
+    types of ``Scene.cpp:32-221`` in the reference's push order."""
+    if asset_dir is None:
+        asset_dir = ASSET_DIR
+    b = SceneBuilder()
+    box = b.add_mesh_file(os.path.join(asset_dir, "enclosing_box.obj"))
+    light = b.add_mesh_file(os.path.join(asset_dir, "ceiling_light.obj"))
+    monkey = b.add_mesh_file(os.path.join(asset_dir, "blender_monkey.obj"))
+
+    M = MaterialType
+    add = b.add_instance
+    add(monkey, Material(M.METAL, (0.001, 0.99, 0.2)),
+        translate=(-50.0, -25.0, 150.0), rotate_y_deg=45.0, scale=(0.08, 0.08, 0.08))
+    add(monkey, Material(M.COAT, (0.99, 0.99, 0.001)),
+        translate=(75.0, 100.0, 0.0), rotate_y_deg=-40.0, scale=(0.1, 0.1, 0.1))
+    add(monkey, Material(M.REFLECTIVE, (0.99, 0.99, 0.75)),
+        translate=(325.0, 45.0, 0.0), rotate_y_deg=0.0, scale=(0.1, 0.1, 0.1))
+    add(box, Material(M.DIFFUSE, (0.99, 0.99, 0.99)),
+        translate=(25.0, -120.0, 0.0), rotate_y_deg=180.0, scale=(0.1, 0.1, 0.1))
+    add(light, Material(M.DIFFUSE, (0.99, 0.50, 0.60)),
+        translate=(325.0, -120.0, 0.0), rotate_y_deg=45.0, scale=(0.1, 0.1, 0.1))
+    add(light, Material(M.COAT, (0.40, 0.10, 0.99)),
+        translate=(-225.0, 8.0, 0.0), rotate_y_deg=45.0, scale=(0.1, 0.1, 0.1))
+    add(light, Material(M.METAL, (0.99, 0.05, 0.10)),
+        translate=(75.0, -90.0, 0.0), rotate_y_deg=30.0, scale=(0.1, 0.1, 0.1))
+    add(light, Material(M.EMISSIVE, (0.99, 0.99, 0.99)),
+        translate=(0.0, 850.0, -100.0), rotate_y_deg=0.0, scale=(0.2, 0.1, 0.2))
+    add(light, Material(M.EMISSIVE, (0.99, 0.99, 0.99)),
+        translate=(0.0, 375.0, 950.0), rotate_y_deg=0.0, scale=(0.2, 0.2, 0.1))
+    add(light, Material(M.EMISSIVE, (0.99, 0.99, 0.99)),
+        translate=(-520.0, 375.0, 0.0), rotate_y_deg=0.0, scale=(0.1, 0.2, 0.2))
+    add(light, Material(M.EMISSIVE, (0.99, 0.99, 0.99)),
+        translate=(550.0, 375.0, 0.0), rotate_y_deg=0.0, scale=(0.1, 0.2, 0.2))
+
+    return b.build()
