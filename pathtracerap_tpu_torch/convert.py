@@ -3,9 +3,9 @@
 The JAX package's ``SceneDevice`` and ``WorldTriangles`` arrive here as a
 dict of their fields, each one ``np.asarray``'d (the static ints as they
 are).  Fields the port has no use for (the uniform grids, the dense
-kernel's packs, the diff replay's tables) are dropped.  With these, the
-JAX bake can be fed to the port's renderer so the two renderers are
-compared alone.
+kernel's packs) are dropped.  With these, the JAX bake can be fed to the
+port's renderer so the two renderers are compared alone.
+:func:`params_from_numpy` does the same for a JAX ``extract_params`` dict.
 """
 
 from __future__ import annotations
@@ -41,3 +41,12 @@ def scene_from_numpy(fields: dict, device) -> SceneDevice:
 def world_from_numpy(fields: dict, device) -> WorldTriangles:
     """A :class:`WorldTriangles` on ``device`` from the JAX one's fields."""
     return _from_numpy(WorldTriangles, fields, device)
+
+
+def params_from_numpy(fields: dict, device) -> dict:
+    """The port's parameter leaves (``requires_grad=True``) on ``device``
+    from a JAX ``extract_params`` dict."""
+    return {
+        k: torch.tensor(np.array(v), dtype=torch.float32, device=device, requires_grad=True)
+        for k, v in fields.items()
+    }

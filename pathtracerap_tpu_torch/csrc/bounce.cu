@@ -206,10 +206,7 @@ __global__ void bounce_kernel(const float* __restrict__ state,  // (N, 10)
     idx_out[ray] = -1;
     return;
   }
-  const V3 o = {s[0], s[1], s[2]};
-  const V3 dn = norm(V3{s[3], s[4], s[5]});
-  const V3 m = cross(o, dn);
-  const RayVec r = {dn.x, dn.y, dn.z, m.x, m.y, m.z, o.x, o.y, o.z};
+  const RayVec r = state_ray(s);
 
   float best = PTT_F_MAX;
   int best_idx = -1;

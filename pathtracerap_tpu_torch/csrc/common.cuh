@@ -1,4 +1,5 @@
-// Shared device code of the traversal kernels (trace_list.cu, bounce.cu).
+// Shared device code of the traversal kernels (trace_list.cu, bounce.cu,
+// bounce_trace.cu).
 //
 // The fused operand pack `ops` is (16, 4*T) row-major: per block of TB
 // triangles its columns are [s_ab | s_bc | s_ca | plane], so triangle g's
@@ -28,6 +29,19 @@
 struct RayVec {
   float d0, d1, d2, m0, m1, m2, o0, o1, o2;
 };
+
+// The ray vector of a 10-column state row [orig, dir, color, remaining]:
+// d = dir * rsqrt(max(|dir|^2, 1e-30)), m = orig x d, the plain versions'
+// normalize_rsqrt and cross3 operation by operation.
+__device__ __forceinline__ RayVec state_ray(const float* s) {
+  const float o0 = s[0], o1 = s[1], o2 = s[2];
+  const float dd = fmaf(s[5], s[5], fmaf(s[4], s[4], s[3] * s[3]));
+  const float k = rsqrtf(dd < 1e-30f ? 1e-30f : dd);
+  const float d0 = k * s[3], d1 = k * s[4], d2 = k * s[5];
+  return {d0, d1, d2,
+          fmaf(o1, d2, -(o2 * d1)), fmaf(o2, d0, -(o0 * d2)), fmaf(o0, d1, -(o1 * d0)),
+          o0, o1, o2};
+}
 
 // Stage the PTT_ROWS non-zero operand rows of triangles [g0, g0 + width)
 // into sm[PTT_ROWS][width].  width divides tri_block and g0 is a multiple

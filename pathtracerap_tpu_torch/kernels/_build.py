@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes``.  The build happens at first use into
+``nvcc`` compiles every ``csrc/*.cu`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
+interface, loaded with ``ctypes``.  The build happens at first use into
 ``build/pathtracerap_tpu_torch/`` beside the package and is keyed by a hash
 of the sources and flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is.  Each C entry point launches on the stream it is
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "pathtracerap_tpu_torch"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 FLAGS = [
-    "-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v", "-lineinfo",
 ]
 
@@ -46,6 +47,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_trace_list.argtypes = [p, p, i, p, i, i, i, i, p, p, p]
     lib.ptt_bounce.restype = i
     lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p, p]
+    lib.ptt_bounce_trace.restype = i
+    lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, i, p, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib
@@ -63,15 +66,29 @@ def library() -> ctypes.CDLL:
         h.update(src.read_bytes())
     so = BUILD_DIR / f"libptt_{h.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        objs = BUILD_DIR / f"obj_{h.hexdigest()[:16]}_{os.getpid()}"
+        objs.mkdir(parents=True, exist_ok=True)
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *FLAGS, "-c", "-I", str(CSRC), "-o", str(objs / f"{src.stem}.o"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src in sources
+        ]
+        logs = [p.communicate()[0] for p in procs]
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        if all(p.returncode == 0 for p in procs):
+            link = subprocess.run(
+                [_nvcc(), "-shared", "-gencode", ARCH, "-o", str(tmp),
+                 *(str(objs / f"{src.stem}.o") for src in sources)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            logs.append(link.stdout)
+            procs.append(link)
+        so.with_suffix(".log").write_text("".join(logs))
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{''.join(logs)[-4000:]}")
         os.replace(tmp, so)
     _lib = _bind(ctypes.CDLL(str(so)))
     return _lib

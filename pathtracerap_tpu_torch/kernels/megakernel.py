@@ -4,12 +4,17 @@
 Per bounce the wavefront is re-sorted by (direction octant, origin
 Morton), per-tile worklists of 128-triangle sub-blocks are built in plain
 torch, and kernel 2, ``csrc/bounce.cu``, traces and shades one bounce.  It
-replaces the TPU kernel ``pallas/megakernel.py::_bounce_kernel``.
+replaces the TPU kernel ``pallas/megakernel.py::_bounce_kernel``.  The
+differentiable forward (:mod:`..diff.fast`) defers the shading instead:
+kernel 3, ``csrc/bounce_trace.cu``, only traces (it replaces
+``_bounce_trace_kernel``) and :func:`defer_shade_apply` shades in torch.
 
-:func:`bounce` is the kernel's wrapper: on a CUDA tensor it launches the
-kernel (counted in ``bounce.launches``), on a CPU tensor it runs the plain
-version :func:`bounce_plain`, which traces every real block (the worklist
-contract makes the hit identical) and shades with the kernel's math.
+:func:`bounce` and :func:`bounce_trace` are the kernels' wrappers: on a
+CUDA tensor they launch the kernel (counted in ``.launches``), on a CPU
+tensor they run the plain versions :func:`bounce_plain` and
+:func:`bounce_trace_plain`, which trace every real block (the worklist
+contract makes the hit identical); the former shades with the kernel's
+math.
 """
 
 from __future__ import annotations
@@ -93,6 +98,23 @@ def _attr_hits(world: WorldTriangles, t: torch.Tensor, idx: torch.Tensor) -> Hit
     )
 
 
+def _ray_vectors(pack: torch.Tensor) -> torch.Tensor:
+    """The (N, 16) ray vectors ``[d_n, orig x d_n, orig, -1, alive, 0...]``
+    of a state pack, with the kernels' rsqrt normalization."""
+    n = pack.shape[0]
+    orig = pack[:, 0:3]
+    d_n = normalize_rsqrt(pack[:, 3:6])
+    return torch.cat(
+        [
+            d_n, cross3(orig, d_n), orig,
+            torch.full((n, 1), -1.0, device=pack.device),
+            (pack[:, 9] > 0.0).to(torch.float32)[:, None],
+            torch.zeros((n, 5), device=pack.device),
+        ],
+        dim=1,
+    )
+
+
 def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, parity: bool):
     """Plain version of kernel 2: one bounce of a (N, 10) ray-state pack
     with its (N, 4) uniforms.  Traces every real block, gathers the
@@ -100,19 +122,10 @@ def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, par
     normalization, as the TPU kernel's ``_shade_inkernel_t``).  Returns
     (new state, hit triangle index or -1)."""
     bounce_plain.calls += 1
-    n = pack.shape[0]
     orig, dirn, remaining = pack[:, 0:3], pack[:, 3:6], pack[:, 9]
-    d_n = normalize_rsqrt(dirn)
-    w16 = torch.cat(
-        [
-            d_n, cross3(orig, d_n), orig,
-            torch.full((n, 1), -1.0, device=pack.device),
-            (remaining > 0.0).to(torch.float32)[:, None],
-            torch.zeros((n, 5), device=pack.device),
-        ],
-        dim=1,
+    t, idx = nearest_hit_fused_plain(
+        _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block
     )
-    t, idx = nearest_hit_fused_plain(w16, world.fused_ops, world.block_aabb.shape[0], world.tri_block)
     state = RayState(orig=orig, dir=dirn, color=pack[:, 6:9], remaining=remaining)
     s = shade(state, _attr_hits(world, t, idx), u, parity=parity, norm=normalize_rsqrt)
     return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1), idx
@@ -192,6 +205,116 @@ def bounce_lists(world: WorldTriangles, margin, pack: torch.Tensor, ray_tile: in
     return _tile_block_lists(boxes, pack[:, 0:3], d_n, alive_f, ray_tile, margin), unit
 
 
+def bounce_trace_plain(pack: torch.Tensor, world: WorldTriangles, ray_tile: int):
+    """Plain version of kernel 3: every ray traced over every real block.
+    Returns (t (N,) f32, column + 1 (N,) int32, 0 = miss); the rays of a
+    tile with no live ray get (F_MAX, 0), as from the kernel."""
+    bounce_trace_plain.calls += 1
+    t, idx = nearest_hit_fused_plain(
+        _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block
+    )
+    live = (pack[:, 9] > 0.0).reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
+    return torch.where(live, t, F_MAX), torch.where(live, idx + 1, 0)
+
+
+bounce_trace_plain.calls = 0
+
+
+def bounce_trace(
+    pack: torch.Tensor,  # (N, 10) sorted ray state, N = nt * ray_tile
+    lists: torch.Tensor,  # (nt, w) int32 tmin-sorted sub-block worklists
+    unit: int,  # worklist granularity: SUB_BLOCK
+    world: WorldTriangles,
+    ray_tile: int,
+):
+    """The trace half of a deferred binned bounce: per ray the nearest
+    accepted triangle over its tile's worklist (exact-t ties to the lowest
+    baked index).  Returns (t (N,) f32, F_MAX on a miss; column + 1 (N,)
+    int32, 0 on a miss and for the rays of a tile with no live ray).  A
+    dead ray of a live tile is traced too; its result is unspecified.
+    Launches kernel 3 for CUDA tensors (counted in
+    ``bounce_trace.launches``), runs the plain version for CPU ones."""
+    n = pack.shape[0]
+    nt, lw = lists.shape
+    if n != nt * ray_tile:
+        raise ValueError(f"{n} rays do not fill {nt} tiles of {ray_tile}")
+    if not use_sub_blocks(world) or unit != SUB_BLOCK:
+        raise ValueError("the deferred trace runs on sub-block worklists only")
+    if pack.device.type == "cpu":
+        return bounce_trace_plain(pack, world, ray_tile)
+    if pack.device.type != "cuda":
+        raise ValueError(f"no kernel for device {pack.device}")
+    if not 32 <= ray_tile <= 1024 or ray_tile % 32:
+        raise ValueError(f"ray_tile must be a multiple of 32 in [32, 1024], got {ray_tile}")
+    dev = pack.device
+    ops = world.fused_ops
+    _check(pack, "pack", torch.float32, (n, STATE_COLS), dev)
+    _check(lists, "lists", torch.int32, (nt, lw), dev)
+    _check(ops, "fused_ops", torch.float32, (16, ops.shape[1]), dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    col1 = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _build.library().ptt_bounce_trace(
+        ctypes.c_void_p(pack.data_ptr()),
+        ctypes.c_void_p(lists.data_ptr()),
+        ctypes.c_int(nt),
+        ctypes.c_int(lw),
+        ctypes.c_int(unit),
+        ctypes.c_int(ray_tile),
+        ctypes.c_void_p(ops.data_ptr()),
+        ctypes.c_int(ops.shape[1]),
+        ctypes.c_int(world.tri_block),
+        ctypes.c_void_p(t.data_ptr()),
+        ctypes.c_void_p(col1.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _build.check(err, "ptt_bounce_trace")
+    bounce_trace.launches += 1
+    return t, col1
+
+
+bounce_trace.launches = 0
+
+
+def defer_shade_apply(world: WorldTriangles, pack: torch.Tensor, tg, u: torch.Tensor, parity: bool):
+    """The shading half of a deferred bounce: gather the winner's
+    attribute rows for ``tg = (t, column + 1)`` and advance the (N, 10)
+    state with this bounce's (N, 4) uniforms.  Shades with
+    :func:`..render.shade.shade`'s default normalization: the JAX package
+    shades the deferred bounce in XLA, not in the kernel."""
+    t, col1 = tg
+    hit = col1 > 0
+    h3 = hit[:, None]
+    a = world.attr_rows[:, torch.clamp(col1 - 1, min=0).long()].T  # (N, 16)
+    rec = HitRecord(
+        t=torch.where(hit, t, F_MAX),
+        normal=torch.where(h3, a[:, 0:3], 0.0),
+        mat_type=torch.where(hit, a[:, 3].to(torch.int32), 0),
+        mat_color=torch.where(h3, a[:, 4:7], 0.0),
+        geom_normal=torch.where(h3, a[:, 7:10], 0.0),
+        mat_ri=torch.where(hit, a[:, 11], 1.5),
+    )
+    state = RayState(
+        orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9],
+        remaining=pack[:, 9].to(torch.int32),
+    )
+    s = shade(state, rec, u, parity=parity)
+    return torch.cat([s.orig, s.dir, s.color, s.remaining.to(torch.float32)[:, None]], dim=1)
+
+
+def sample_groups(n_samples: int):
+    """Sizes of the sample groups sorted as one wavefront: full groups of
+    ``BINNED_SAMPLE_BATCH``, then the remainder one by one (the
+    reference's order of summation)."""
+    n_full = n_samples - n_samples % BINNED_SAMPLE_BATCH
+    return [BINNED_SAMPLE_BATCH] * (n_full // BINNED_SAMPLE_BATCH) + [1] * (n_samples - n_full)
+
+
+def inverse_permutation(pix: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(pix)
+    inv[pix] = torch.arange(pix.shape[0], device=pix.device)
+    return inv
+
+
 def first_wavefront(world, ro_p, rd_p, hits0, key, s0: int, ns: int, n: int, max_bounces: int,
                     parity: bool, tile_base: int):
     """Samples ``s0 .. s0 + ns`` as one wavefront after bounce 0: the
@@ -250,13 +373,9 @@ def render_samples_binned(
     hits0 = trace_pallas(world, ro_p, rd_p)
     lo, hi = scene_morton_bounds(world.block_aabb)
 
-    # full groups of BINNED_SAMPLE_BATCH, then the remainder one by one:
-    # the reference's order of summation into the accumulator
-    n_full = n_samples - n_samples % BINNED_SAMPLE_BATCH
-    group_sizes = [BINNED_SAMPLE_BATCH] * (n_full // BINNED_SAMPLE_BATCH) + [1] * (n_samples - n_full)
     acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
     s0 = 0
-    for ns in group_sizes:
+    for ns in sample_groups(n_samples):
         pack, u_flat = first_wavefront(
             world, ro_p, rd_p, hits0, key, s0, ns, n, max_bounces, parity, tile_base
         )
@@ -266,10 +385,7 @@ def render_samples_binned(
             lists, unit = bounce_lists(world, margin, pack, ray_tile)
             pack, _ = bounce(pack, u_flat[:, 4 * b:4 * b + 4][pix], lists, unit, world, ray_tile, parity)
         contrib = torch.sqrt(torch.clamp(pack[:, 6:9], min=0.0))
-        # un-permute through the inverse permutation
-        inv = torch.empty_like(pix)
-        inv[pix] = torch.arange(pix.shape[0], device=dev)
-        acc = acc + contrib[inv].reshape(ns, n_pad, 3).sum(dim=0)
+        acc = acc + contrib[inverse_permutation(pix)].reshape(ns, n_pad, 3).sum(dim=0)
         s0 += ns
     return acc[:n]
 

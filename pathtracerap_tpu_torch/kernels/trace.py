@@ -261,9 +261,11 @@ def primary_inputs(world: WorldTriangles, ro, rd, alive=None):
     return w16, block_list
 
 
-def trace_pallas(world: WorldTriangles, ro, rd, alive=None) -> HitRecord:
+def trace_pallas(world: WorldTriangles, ro, rd, alive=None, return_idx: bool = False):
     """Full-scene nearest hit through the worklist kernel; the same result
-    contract as :func:`..ops.plucker.trace_mxu`."""
+    contract as :func:`..ops.plucker.trace_mxu`.  With ``return_idx`` it
+    returns ``(HitRecord, idx)``, idx (N,) int32 the hit triangle's baked
+    index (0 on a miss)."""
     if world.fused_ops is None:
         raise NotImplementedError(
             "the dense no-pack tracer is not ported yet (ROADMAP B5)"
@@ -271,4 +273,6 @@ def trace_pallas(world: WorldTriangles, ro, rd, alive=None) -> HitRecord:
     n = ro.shape[0]
     w16, block_list = primary_inputs(world, ro, rd, alive)
     t, idx = nearest_hit_fused(w16, world.fused_ops, block_list, RAY_TILE, world.tri_block)
-    return hit_record(world, t[:n], torch.clamp(idx[:n], min=0).long())
+    idx = torch.clamp(idx[:n], min=0)
+    rec = hit_record(world, t[:n], idx.long())
+    return (rec, idx) if return_idx else rec

@@ -62,7 +62,12 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTriangles:
     """Bake all model instances into a world-space triangle soup, with the
     fused (16, 4*T) operand pack, block / sub-block AABBs and attribute
-    rows of the worklist kernels (see :class:`WorldTriangles`)."""
+    rows of the worklist kernels (see :class:`WorldTriangles`).
+
+    Differentiable in ``vertex_pos``, ``vertex_nrm``, ``model_to_world``
+    and ``mat_color``: the integer parts (Morton codes, the argsorts, the
+    static counts) carry no gradient and cut no path one needs, and no
+    tensor that may require grad is written in place."""
     if fused_tile % SUB_BLOCK:
         raise ValueError(f"fused_tile must be a multiple of {SUB_BLOCK}, got {fused_tile}")
     src = scene.world_tri_src.long()
@@ -130,10 +135,10 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTria
     perm = torch.argsort(code, stable=True)
     perm = perm[torch.argsort(klass[perm], stable=True)]
     (a, b, c, e_ab, e_bc, e_ca, n, d_plane, shade_n, mat_type, mat_color,
-     mat_ri, src_valid) = (
+     mat_ri, src_valid, tri_model) = (
         x[perm]
         for x in (a, b, c, e_ab, e_bc, e_ca, n, d_plane, shade_n, mat_type,
-                  mat_color, mat_ri, src_valid)
+                  mat_color, mat_ri, src_valid, mdl)
     )
 
     tw = a.shape[0]
@@ -229,6 +234,11 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTria
         mat_color=padt(mat_color),
         mat_ri=padt(mat_ri, value=1.5),
         valid=padt(src_valid)[:, 0],
+        v0=padt(a),
+        e1=padt(b - a),
+        e2=padt(c - a),
+        tri_model=padt(tri_model).to(torch.int32),
+        mat_table=scene.mat_color,
         fused_ops=fused_ops,
         block_aabb=block_aabb,
         attr_rows=attr_rows,

@@ -149,6 +149,9 @@ class SceneDevice:
     def device(self) -> torch.device:
         return self.vertex_pos.device
 
+    def replace(self, **fields) -> "SceneDevice":
+        return dataclasses.replace(self, **fields)
+
 
 @dataclasses.dataclass
 class WorldTriangles:
@@ -167,6 +170,11 @@ class WorldTriangles:
     ``[-n, -d_plane]``) gives t * det.  ``attr_rows`` (16, T) holds the
     per-triangle shading attributes ``[shade_n(0:3), mat_type(3),
     rgb(4:7), geom_n(7:10), idx+1(10), refractive_index(11), 0(12:16)]``.
+
+    ``v0``, ``e1``, ``e2``, ``tri_model`` and ``mat_table`` serve the
+    differentiable replay (:mod:`pathtracerap_tpu_torch.diff.fast`), which
+    recomputes hits at frozen triangle indices; ``mat_table`` is the
+    scene's ``mat_color`` leaf itself and ``mat_color == mat_table[tri_model]``.
     """
 
     edge_pluecker: torch.Tensor  # (3, 6, T) f32 edge columns [p x q; q - p]
@@ -178,6 +186,11 @@ class WorldTriangles:
     mat_color: torch.Tensor  # (T, 3) f32
     mat_ri: torch.Tensor  # (T,) f32 refractive index (1.5 on padding)
     valid: torch.Tensor  # (T,) f32 1.0 real, 0.0 padding
+    v0: torch.Tensor  # (T, 3) f32 vertex a
+    e1: torch.Tensor  # (T, 3) f32 b - a
+    e2: torch.Tensor  # (T, 3) f32 c - a
+    tri_model: torch.Tensor  # (T,) i32 owning model instance (0 on padding)
+    mat_table: torch.Tensor  # (M, 3) f32 per-model color
     fused_ops: Optional[torch.Tensor] = None  # (16, 4*T) f32
     block_aabb: Optional[torch.Tensor] = None  # (nb_real, 8) f32
     attr_rows: Optional[torch.Tensor] = None  # (16, T) f32
@@ -192,3 +205,13 @@ class WorldTriangles:
     @property
     def device(self) -> torch.device:
         return self.valid.device
+
+    def detached(self) -> "WorldTriangles":
+        """The same world with every tensor detached from the autograd
+        graph: what the kernels and the index-stream forward read."""
+        return dataclasses.replace(self, **{
+            f.name: v.detach()
+            for f in dataclasses.fields(self)
+            for v in [getattr(self, f.name)]
+            if isinstance(v, torch.Tensor)
+        })

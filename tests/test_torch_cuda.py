@@ -109,6 +109,49 @@ def test_bounce_kernel_block_mode_matches_plain(dev, world, wavefront):
     _check_bounce(world, pack, u, lists, world.tri_block, ray_tile)
 
 
+def test_bounce_trace_kernel_matches_plain(dev, world, wavefront):
+    """Kernel 3 on the sub-block worklists of the same sorted wavefront:
+    the winner's index on live rays, its t, and a miss for dead tiles."""
+    pack, _ = wavefront
+    ray_tile = TM.binned_ray_tile(world)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    before = TM.bounce_trace.launches
+    t, col1 = TM.bounce_trace(pack, lists, unit, world, ray_tile)
+    torch.cuda.synchronize()
+    assert TM.bounce_trace.launches == before + 1
+    tp, cp = TM.bounce_trace_plain(pack, world, ray_tile)
+    live = pack[:, 9] > 0
+    agree = (col1 == cp) & live
+    assert (agree.sum() / live.sum()).item() >= 0.9999
+    both = agree & (cp > 0)
+    assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both].max().item() <= 1e-5
+    dead_tile = ~live.reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
+    assert (col1[dead_tile] == 0).all() and (t[dead_tile] == 9999999.0).all()
+
+
+def test_train_step_on_gpu_matches_cpu(dev):
+    """The mat_color loss and gradient at 32x16, 2 spp, 4 bounces through
+    the kernels against the same on CPU tensors (the plain versions)."""
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad, make_train_step
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = build_reference_scene().to_device(d)
+        target = torch.full((512, 3), 0.25, device=d)
+        TT.nearest_hit_fused_plain.calls = TM.bounce_trace_plain.calls = 0
+        out[d.type] = loss_and_grad(extract_params(scene), scene, target, prng_key(1, d),
+                                    CameraConfig(), (32, 16), 2, 4, engine="fused")
+        if d.type == "cuda":
+            assert TT.nearest_hit_fused_plain.calls == TM.bounce_trace_plain.calls == 0
+            step = make_train_step(scene, CameraConfig(), (32, 16), 2, 4, engine="fused")
+            loss, new = step(extract_params(scene), target, prng_key(1, d))
+            assert torch.equal(loss, out["cuda"][0])
+    (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(l_g.item(), l_c.item(), rtol=1e-5)
+    np.testing.assert_allclose(g_g["mat_color"].cpu().numpy(), g_c["mat_color"].numpy(),
+                               rtol=1e-4, atol=1e-7)
+
+
 def test_render_on_gpu_matches_golden(dev):
     cfg = RenderConfig(resolution=(100, 80), samples_per_pixel=4, max_bounces=5, engine="fused")
     r = Renderer(build_reference_scene().to_device(dev), cfg, device=dev)

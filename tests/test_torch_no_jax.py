@@ -1,4 +1,5 @@
-"""The port runs where JAX is absent: the machine with the GPU has none."""
+"""The port renders and trains where JAX is absent: the machine with the GPU
+has none."""
 
 import os
 import re
@@ -17,6 +18,14 @@ from pathtracerap_tpu_torch import RenderConfig, Renderer, build_reference_scene
 cfg = RenderConfig(resolution=(16, 16), samples_per_pixel=1, max_bounces=2, engine="fused")
 img = Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu").render().numpy()
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and 0.0 < img.mean() < 1.0
+import torch
+from pathtracerap_tpu_torch import CameraConfig, extract_params, make_train_step
+from pathtracerap_tpu_torch.ops.rng import prng_key
+scene = build_reference_scene().to_device("cpu")
+step = make_train_step(scene, CameraConfig(), (16, 8), 1, 2, engine="fused")
+params = extract_params(scene)
+loss, new = step(params, torch.zeros(16 * 8, 3), prng_key(0))
+assert torch.isfinite(loss) and not torch.equal(new["mat_color"], params["mat_color"])
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """
