@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from ``pathtracerap_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version at the shapes of
-the main paths, then drives both halves of ``bench.py`` on the port:
+the main paths, then drives the port's paths through the entry points a
+user calls, each with the kernels' launch counts set to 0 just before it
+and read just after:
 
 * the render of the reference scene at 1000x800, 24 spp, 5 bounces
   (``engine="fused"`` routed to the binned engine) through ``Renderer``,
@@ -12,15 +14,23 @@ the main paths, then drives both halves of ``bench.py`` on the port:
 * the train step at 1000x800, 8 spp, 5 bounces on ``mat_color``
   (``make_train_step(..., engine="fused")``), timed, with the vertex_pos
   gradient in quality mode at the same size and a small step on the card
-  held against the same step on CPU tensors.
+  held against the same step on CPU tensors;
+* the whole-sample fused engine (kernel 4): the jittered quality render of
+  the reference scene at 1000x800, 24 spp, 5 bounces; the Cornell box at
+  256x256, 64 spp, 4 bounces (BASELINE config 1); the emit_idx train step
+  on the Cornell box at 256x256, 8 spp, 4 bounces with its quality
+  vertex_pos gradient; and small renders and steps on the card held
+  against CPU tensors.
 
 Every check raises on failure, so the script exits non-zero before its
 last line, which is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-It needs one CUDA device and exits non-zero without a result when there is
-none.  It imports no JAX.
+The line before it lists each kernel's launches on its main path, error
+against its plain version, time, plain time and bound.  It needs one CUDA
+device and exits non-zero without a result when there is none.  It
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +57,15 @@ TRAIN_SPP, TRAIN_STEPS = 8, 3  # bench.py:89-90
 SMALL_RES, SMALL_SPP, SMALL_BOUNCES = (32, 16), 2, 4
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
 F_MAX = 9999999.0
+FUSED_SLAB = 64 * 8192  # rays of one fused slab (FUSED_SLAB_TILES RNG tiles)
+K4_CLOSE_SHARE, K4_ABS, K4_IDX_SHARE = 0.999, 1e-4, 0.9999
+CORNELL_RES, CORNELL_SPP, CORNELL_BOUNCES = (256, 256), 64, 4  # bench_suite.py:106-114
+CORNELL_CAMERA = dict(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0), plane_y=(-40.0, 40.0),
+                      plane_z=100.0)
+CPU_MEAN_ABS, CPU_COMPONENT_ABS, CPU_COMPONENT_SHARE = 1e-4, 1e-5, 0.995
+# bounds: NVIDIA H100 SXM data sheet (dense FP32 peak, HBM3 bandwidth)
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+PAIR_FLOPS = 47  # per (ray, triangle): 22 FMAs, det, division, t/u/v, accept chain
 
 
 def check(ok: bool, what: str) -> None:
@@ -76,6 +95,26 @@ def downsample(x, f: int):
     return x[: h - h % f, : w - w % f].reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
 
 
+def bound(flops: float, n_bytes: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations over the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": n_bytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def list_pairs(lists, live, ray_tile: int, unit: int) -> int:
+    """(ray, triangle) pairs a worklist kernel sweeps for these inputs:
+    per tile, its listed units' triangles times its live rays."""
+    per_tile = live.reshape(-1, ray_tile).sum(dim=1) * (lists >= 0).sum(dim=1)
+    return int(per_tile.sum().item()) * unit
+
+
 def kernel1_vs_plain(world, dev):
     """Kernel 1 against its plain version on the primary rays."""
     import torch
@@ -99,6 +138,7 @@ def kernel1_vs_plain(world, dev):
 
     t_k, i_k = kern()
     t_p, i_p = plain()
+    res_bytes = nbytes(t_k, i_k)
     t_k, i_k, t_p, i_p = t_k[:n], i_k[:n], t_p[:n], i_p[:n]
     same = i_k == i_p
     both = same & (i_p >= 0)
@@ -115,6 +155,9 @@ def kernel1_vs_plain(world, dev):
     check(rel <= K1_T_REL, f"kernel 1 max rel t diff {rel} <= {K1_T_REL}")
     res["ms"] = cuda_ms(kern)
     res["plain_ms"] = cuda_ms(plain)
+    live = w16[:, 10] > 0
+    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, RAY_TILE, tb),
+                     nbytes(w16, world.fused_ops, lists) + res_bytes))
     # the render launches kernel 1 once per slab of SLAB rays
     w_s, lists_s = primary_inputs(world, ro[:SLAB], rd[:SLAB])
     res["slab_rays"] = w_s.shape[0]
@@ -186,6 +229,8 @@ def kernel2_vs_plain(world, dev):
     check(res["dead_pass_through"], "kernel 2 leaves dead rays unchanged")
     res["ms"] = cuda_ms(kern)
     res["plain_ms"] = cuda_ms(plain)
+    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, ray_tile, unit),
+                     nbytes(pack, u_b, lists, world.fused_ops, world.attr_rows, out_k, i_k)))
     return res
 
 
@@ -228,32 +273,35 @@ def kernel3_vs_plain(world, dev):
     check(res["dead_tiles_miss"], "kernel 3 writes a miss for tiles with no live ray")
     res["ms"] = cuda_ms(kern)
     res["plain_ms"] = cuda_ms(plain)
+    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, ray_tile, unit),
+                     nbytes(pack, lists, world.fused_ops, t_k, c_k)))
     return res
 
 
-def _zero_counts():
-    from pathtracerap_tpu_torch.kernels.megakernel import (
-        bounce, bounce_plain, bounce_trace, bounce_trace_plain,
-    )
-    from pathtracerap_tpu_torch.kernels.trace import nearest_hit_fused, nearest_hit_fused_plain
+def _kernel_fns():
+    from pathtracerap_tpu_torch.kernels import megakernel as MK
+    from pathtracerap_tpu_torch.kernels import trace as TT
 
-    for f in (nearest_hit_fused, bounce, bounce_trace):
+    wrappers = {"trace_list": TT.nearest_hit_fused, "bounce": MK.bounce,
+                "bounce_trace": MK.bounce_trace, "sample_fused": MK.sample_fused}
+    plains = (TT.nearest_hit_fused_plain, MK.bounce_plain, MK.bounce_trace_plain,
+              MK.sample_fused_plain)
+    return wrappers, plains
+
+
+def _zero_counts():
+    wrappers, plains = _kernel_fns()
+    for f in wrappers.values():
         f.launches = 0
-    for f in (nearest_hit_fused_plain, bounce_plain, bounce_trace_plain):
+    for f in plains:
         f.calls = 0
 
 
 def _counts() -> dict:
-    from pathtracerap_tpu_torch.kernels.megakernel import (
-        bounce, bounce_plain, bounce_trace, bounce_trace_plain,
-    )
-    from pathtracerap_tpu_torch.kernels.trace import nearest_hit_fused, nearest_hit_fused_plain
-
-    return {
-        "trace_list_launches": nearest_hit_fused.launches, "bounce_launches": bounce.launches,
-        "bounce_trace_launches": bounce_trace.launches,
-        "plain_calls": nearest_hit_fused_plain.calls + bounce_plain.calls + bounce_trace_plain.calls,
-    }
+    wrappers, plains = _kernel_fns()
+    out = {f"{name}_launches": f.launches for name, f in wrappers.items()}
+    out["plain_calls"] = sum(f.calls for f in plains)
+    return out
 
 
 def main_path(dev):
@@ -465,6 +513,283 @@ def train_step_vs_cpu(dev):
     return res
 
 
+def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=False):
+    """Kernel 4 against its plain version on one set of inputs: the share
+    of rays with every contribution within K4_ABS, the bit-equal share, the
+    largest error, times, live rays per bounce and the bound."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels.megakernel import sample_fused, sample_fused_plain
+
+    def kern():
+        return sample_fused(w16, prim, u, world, bounces, parity, use_primary, emit_idx)
+
+    def plain(live=None):
+        return sample_fused_plain(w16, prim, u, world, bounces, parity, use_primary, emit_idx, live)
+
+    out_k, live = kern(), []
+    out_p = plain(live)
+    torch.cuda.synchronize()
+    if emit_idx:
+        (out_k, idx_k), (out_p, idx_p) = out_k, out_p
+    n = w16.shape[0]
+    d = (out_k - out_p).abs()
+    close = (d <= K4_ABS).all(dim=1).float().mean().item()
+    ns = u.shape[0] if u.dim() == 3 else 1
+    live = torch.stack(live).reshape(ns, bounces).sum(dim=0).tolist()
+    traced = sum(live[1:] if use_primary else live)  # ray-bounces the kernel sweeps
+    res = {
+        "rays": n, "samples": ns, "bounces": bounces, "parity": parity,
+        "use_primary": use_primary, "emit_idx": emit_idx, "live_per_bounce": live,
+        "close_share": close, "max_abs_err": d.max().item(),
+        "bit_equal_share": (out_k.view(torch.int32) == out_p.view(torch.int32)).all(dim=1)
+        .float().mean().item(),
+        "finite": bool(torch.isfinite(out_k).all().item()),
+    }
+    check(res["finite"], "kernel 4 output finite")
+    check(close >= K4_CLOSE_SHARE, f"kernel 4 close share {close} >= {K4_CLOSE_SHARE}")
+    outs = [out_k] + ([idx_k] if emit_idx else [])
+    if emit_idx:
+        hit = (idx_k != 0) | (idx_p != 0)
+        share = (((idx_k == idx_p) & hit).sum() / hit.sum().clamp_min(1)).item()
+        res["idx_equal_share"] = share
+        check(share >= K4_IDX_SHARE, f"kernel 4 idx equal share {share} >= {K4_IDX_SHARE}")
+    res["ms"] = cuda_ms(kern)
+    res["plain_ms"] = cuda_ms(plain)
+    # the sweep visits every real triangle for every live traced ray-bounce
+    res.update(bound(PAIR_FLOPS * traced * world.n_valid,
+                     nbytes(w16, prim, u, world.fused_ops, world.attr_rows, *outs)))
+    return res
+
+
+def kernel4_vs_plain(ref_world, dev):
+    """Kernel 4 at full size in three modes: the quality render's first
+    slab (one jittered sample traced in the kernel, 5 bounces), the
+    Cornell render's first batch (8 samples from the primary rows, 4
+    bounces) and the Cornell step's emit_idx pass (one sample)."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
+    from pathtracerap_tpu_torch.kernels.megakernel import primary_pack
+    from pathtracerap_tpu_torch.kernels.trace import ray_vectors, trace_pallas
+    from pathtracerap_tpu_torch.ops.math import normalize
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+    from pathtracerap_tpu_torch.ops.rng import chunk_jitter_uniforms, chunk_uniforms, prng_key
+    from pathtracerap_tpu_torch.render.camera import generate_rays, jitter_step
+
+    key = prng_key(0, dev)
+    cam = CameraConfig(jitter=True)
+    ro, rd = generate_rays(cam, RESOLUTION, device=dev)
+    ro, rd = ro[:FUSED_SLAB], rd[:FUSED_SLAB]
+    n = ro.shape[0]
+    step = jitter_step(cam, RESOLUTION)
+    ju = chunk_jitter_uniforms(key, 0, n, n)
+    rd_s = rd + torch.cat([ju[:, 0:1] * step[0], ju[:, 1:2] * step[1], torch.zeros_like(ju[:, :1])],
+                          dim=1)
+    w16 = ray_vectors(ro, normalize(rd_s))
+    u = chunk_uniforms(key, 0, MAX_BOUNCES, n, n)
+    zeros = torch.zeros((n, 16), device=dev)
+    res = {"traced_jittered": _fused_compare(ref_world, w16, zeros, u, MAX_BOUNCES, False, False)}
+
+    world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
+    ro, rd = generate_rays(CameraConfig(**CORNELL_CAMERA), CORNELL_RES, device=dev)
+    n = ro.shape[0]
+    rd_n = normalize(rd)
+    hits, idx = trace_pallas(world, ro, rd_n, return_idx=True)
+    w16 = ray_vectors(ro, rd_n)
+    u = chunk_uniforms(key, range(8), CORNELL_BOUNCES, n, n).reshape(8, n, 4 * CORNELL_BOUNCES)
+    res["primary_batched"] = _fused_compare(world, w16, primary_pack(hits), u, CORNELL_BOUNCES,
+                                            True, True)
+    prim = primary_pack(hits, torch.where(hits.t < F_MAX, idx + 1, 0))
+    res["emit_idx"] = _fused_compare(world, w16, prim, u[0], CORNELL_BOUNCES, True, True,
+                                     emit_idx=True)
+    return res
+
+
+def quality_render(dev):
+    """The jittered quality render of the reference scene through the
+    port's Renderer: 1000x800, 24 spp, 5 bounces, engine="fused",
+    parity=False, CameraConfig(jitter=True)."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, build_reference_scene, read_bmp
+
+    cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=SPP, max_bounces=MAX_BOUNCES,
+                       engine="fused", parity=False, camera=CameraConfig(jitter=True))
+    r = Renderer(build_reference_scene().to_device(dev), cfg, device=dev)
+    check(r.engine == "fused", f"quality render routed to {r.engine!r}, expected 'fused'")
+    r.render()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = {"engine": r.engine, "render_s": dt,
+           "mrays_per_s": RESOLUTION[0] * RESOLUTION[1] * SPP * MAX_BOUNCES / dt / 1e6,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res.update(_counts())
+    check(res["sample_fused_launches"] > 0, "kernel 4 launched on the quality render")
+    check(res["trace_list_launches"] == 0, "no primary trace on the jittered render")
+    check(res["plain_calls"] == 0, "no plain version called on the quality render")
+    img = img.cpu().numpy()
+    check(bool(np.isfinite(img).all()), "quality image is finite")
+    res["mean"] = float(img.mean())
+    check(0.01 < res["mean"] < 1.0, f"quality image mean {res['mean']} in (0.01, 1.0)")
+    g = read_bmp(GOLDEN).astype(np.float32) / 255.0
+    a, b = downsample(img, 8), downsample(g, 8)
+    res["golden_mad"] = float(np.abs(a - b).mean())  # no bound: quality mode changes the image
+    res["golden_corr"] = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    return res
+
+
+def cornell_render(dev):
+    """BASELINE config 1 through the port's Renderer: the Cornell box at
+    256x256, 64 spp, 4 bounces, engine="fused" (one block: stays fused)."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, build_cornell_box_scene
+
+    cfg = RenderConfig(resolution=CORNELL_RES, samples_per_pixel=CORNELL_SPP,
+                       max_bounces=CORNELL_BOUNCES, engine="fused",
+                       camera=CameraConfig(**CORNELL_CAMERA))
+    r = Renderer(build_cornell_box_scene().to_device(dev), cfg, device=dev)
+    check(r.engine == "fused", f"Cornell render routed to {r.engine!r}, expected 'fused'")
+    r.render()  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = {"engine": r.engine, "render_s": dt,
+           "mrays_per_s": CORNELL_RES[0] * CORNELL_RES[1] * CORNELL_SPP * CORNELL_BOUNCES / dt / 1e6}
+    res.update(_counts())
+    check(res["trace_list_launches"] == 1, "kernel 1 traced the primaries once")
+    check(res["sample_fused_launches"] == CORNELL_SPP // 8, "kernel 4 once per 8-sample batch")
+    check(res["plain_calls"] == 0, "no plain version called on the Cornell render")
+    img = img.cpu().numpy()
+    res["mean"] = float(img.mean())
+    check(bool(np.isfinite(img).all()) and 0.01 < res["mean"] < 1.0, "Cornell image finite, mean in (0.01, 1)")
+    return res
+
+
+def cornell_train_step(dev):
+    """The emit_idx train step: make_train_step on the Cornell box at
+    256x256, 8 spp, 4 bounces, mat_color, engine="fused"; then the quality
+    vertex_pos gradient at the same size (the checkpointed replay)."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad, make_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+
+    scene = build_cornell_box_scene().to_device(dev)
+    cam = CameraConfig(**CORNELL_CAMERA)
+    n = CORNELL_RES[0] * CORNELL_RES[1]
+    lr = 0.05
+    target = torch.zeros((n, 3), device=dev)
+    key = prng_key(0, dev)
+    step = make_train_step(scene, cam, CORNELL_RES, TRAIN_SPP, CORNELL_BOUNCES, lr=lr,
+                           engine="fused")
+    params = extract_params(scene, ("mat_color",))
+    step(params, target, key)  # warm-up
+    walls = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        loss, new = step(params, target, key)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    res = {"resolution": CORNELL_RES, "spp": TRAIN_SPP, "bounces": CORNELL_BOUNCES,
+           "step_s": walls, "fwd_bwd_mrays_per_s": n * TRAIN_SPP * CORNELL_BOUNCES / min(walls) / 1e6,
+           "loss": loss.item(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res.update(_counts())
+    res.update(_grad_stats((params["mat_color"] - new["mat_color"]) / lr))
+    check(res["sample_fused_launches"] == TRAIN_SPP, "kernel 4 once per sample in the step")
+    check(res["bounce_trace_launches"] == 0, "no binned forward on a single-block scene")
+    check(res["plain_calls"] == 0, "no plain version called in the Cornell step")
+    check(math.isfinite(res["loss"]) and res["loss"] > 0, f"loss {res['loss']} finite and > 0")
+    check(res["grad_finite"] and res["grad_nonzero"] > 0, "mat_color gradient finite and nonzero")
+
+    vparams = extract_params(scene, ("vertex_pos",))
+    loss_and_grad(vparams, scene, target, key, cam, CORNELL_RES, TRAIN_SPP, CORNELL_BOUNCES,
+                  engine="fused", parity=False)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    vloss, grads = loss_and_grad(vparams, scene, target, key, cam, CORNELL_RES, TRAIN_SPP,
+                                 CORNELL_BOUNCES, engine="fused", parity=False)
+    torch.cuda.synchronize()
+    q = {"step_s": time.perf_counter() - t0, "loss": vloss.item(),
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    q.update(_counts())
+    q.update(_grad_stats(grads["vertex_pos"]))
+    check(q["sample_fused_launches"] > 0 and q["plain_calls"] == 0, "kernel 4 on the quality step")
+    check(math.isfinite(q["loss"]) and q["loss"] > 0, f"quality loss {q['loss']} finite and > 0")
+    check(q["grad_finite"] and q["grad_nonzero"] > 0, "vertex_pos gradient finite and nonzero")
+    res["quality_vertex_pos"] = q
+    return res
+
+
+def fused_vs_cpu(dev):
+    """Kernel 4's paths on the card against the same on CPU tensors (the
+    plain versions): a 32x16 jittered quality render of the reference
+    scene, and a 32x16 Cornell step (loss and mat_color gradient)."""
+    import torch
+
+    from pathtracerap_tpu_torch import (
+        CameraConfig, RenderConfig, Renderer, build_cornell_box_scene, build_reference_scene,
+    )
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+
+    cfg = RenderConfig(resolution=SMALL_RES, samples_per_pixel=SMALL_SPP, max_bounces=MAX_BOUNCES,
+                       engine="fused", parity=False, camera=CameraConfig(jitter=True))
+    imgs = {}
+    for d in (dev, torch.device("cpu")):
+        _zero_counts()
+        imgs[d.type] = Renderer(build_reference_scene().to_device(d), cfg, device=d).render(seed=3)
+        if d.type == "cuda":
+            counts = _counts()
+    d = (imgs["cuda"].cpu() - imgs["cpu"]).abs()
+    res = {"render": {"resolution": SMALL_RES, "spp": SMALL_SPP, "bounces": MAX_BOUNCES,
+                      "mean_abs": d.mean().item(), "max_abs": d.max().item(),
+                      "share_within": (d <= CPU_COMPONENT_ABS).float().mean().item(), **counts}}
+    check(counts["sample_fused_launches"] > 0 and counts["plain_calls"] == 0, "kernel 4 on the card")
+    check(res["render"]["mean_abs"] <= CPU_MEAN_ABS, f"card vs CPU mean|diff| <= {CPU_MEAN_ABS}")
+    check(res["render"]["share_within"] >= CPU_COMPONENT_SHARE,
+          f"card vs CPU: {CPU_COMPONENT_SHARE} of components within {CPU_COMPONENT_ABS}")
+
+    cam = CameraConfig(**CORNELL_CAMERA)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = build_cornell_box_scene().to_device(d)
+        target = torch.full((SMALL_RES[0] * SMALL_RES[1], 3), 0.25, device=d)
+        _zero_counts()
+        out[d.type] = loss_and_grad(extract_params(scene), scene, target, prng_key(1, d), cam,
+                                    SMALL_RES, SMALL_SPP, SMALL_BOUNCES, engine="fused")
+        if d.type == "cuda":
+            counts = _counts()
+    (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
+    g_g, g_c = g_g["mat_color"].cpu(), g_c["mat_color"]
+    res["cornell_step"] = {"loss_gpu": l_g.item(), "loss_cpu": l_c.item(),
+                           "loss_rel": abs(l_g.item() - l_c.item()) / abs(l_c.item()),
+                           "grad_max_abs": (g_g - g_c).abs().max().item(),
+                           "grad_abs_max": g_c.abs().max().item(), **counts}
+    check(counts["sample_fused_launches"] > 0 and counts["plain_calls"] == 0, "kernel 4 on the card")
+    check(res["cornell_step"]["loss_rel"] <= LOSS_RTOL, f"Cornell loss vs CPU within {LOSS_RTOL}")
+    check(bool(torch.allclose(g_g, g_c, rtol=GRAD_RTOL, atol=1e-7)),
+          f"Cornell gradient vs CPU within rtol {GRAD_RTOL}")
+    return res
+
+
 def phase(name: str, res) -> None:
     print(f"{name}: {json.dumps(res)}", flush=True)
 
@@ -516,30 +841,33 @@ def main() -> int:
     phase("train_step", ts)
     phase("train_step_quality_vertex", train_step_quality_vertex(dev))
     phase("train_step_vs_cpu", train_step_vs_cpu(dev))
+    k4 = kernel4_vs_plain(world, dev)
+    phase("kernel4_vs_plain", k4)
+    qr = quality_render(dev)
+    phase("quality_render", qr)
+    phase("cornell_render", cornell_render(dev))
+    phase("cornell_train_step", cornell_train_step(dev))
+    phase("fused_vs_cpu", fused_vs_cpu(dev))
     check("jax" not in sys.modules, "jax was never imported")
 
+    def entry(name, source, replaces, launches, k, max_abs_err=None):
+        return {
+            "name": name, "route": "cuda", "source": f"pathtracerap_tpu_torch/csrc/{source}",
+            "replaces": f"pathtracerap_tpu/pallas/{replaces}", "launches": launches,
+            "max_abs_err": k["max_abs_err"] if max_abs_err is None else max_abs_err,
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a nearest hit
+        }
+
+    k4q = k4["traced_jittered"]  # the quality render's launch, its main path
     kernels = [
-        {
-            "name": "trace_list", "route": "cuda",
-            "source": "pathtracerap_tpu_torch/csrc/trace_list.cu",
-            "replaces": "pathtracerap_tpu/pallas/trace.py:188",
-            "launches": mp["trace_list_launches"], "max_abs_err": k1["max_abs_err"],
-            "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        },
-        {
-            "name": "bounce", "route": "cuda",
-            "source": "pathtracerap_tpu_torch/csrc/bounce.cu",
-            "replaces": "pathtracerap_tpu/pallas/megakernel.py:1666",
-            "launches": mp["bounce_launches"], "max_abs_err": k2["max_abs_err"],
-            "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        },
-        {
-            "name": "bounce_trace", "route": "cuda",
-            "source": "pathtracerap_tpu_torch/csrc/bounce_trace.cu",
-            "replaces": "pathtracerap_tpu/pallas/megakernel.py:1846",
-            "launches": ts["bounce_trace_launches"], "max_abs_err": k3["max_abs_err"],
-            "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-        },
+        entry("trace_list", "trace_list.cu", "trace.py:188", mp["trace_list_launches"], k1),
+        entry("bounce", "bounce.cu", "megakernel.py:1666", mp["bounce_launches"], k2),
+        entry("bounce_trace", "bounce_trace.cu", "megakernel.py:1846",
+              ts["bounce_trace_launches"], k3),
+        entry("megakernel", "megakernel.cu", "megakernel.py:1206", qr["sample_fused_launches"],
+              k4q, max(m["max_abs_err"] for m in k4.values())),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -3,24 +3,32 @@
 A port of :mod:`pathtracerap_tpu` (JAX/Pallas on a TPU) to PyTorch, with the
 traversal kernels written by hand in CUDA C++ for Hopper (``csrc/``).  The
 JAX package stays the reference the port is held against; this package
-never imports ``jax`` or ``flax``.  The host-side
-modules it shares with the reference (``constants``, ``config``,
-``io.obj``, ``io.bmp``, ``native``) are jax-free.
+imports neither ``jax`` nor anything of ``pathtracerap_tpu``, and keeps its
+own copies of the host modules it needs (``constants``, ``config``,
+``io.bmp``, ``io.obj``).
 
-It covers the binned forward render of the reference scene,
-``Renderer(scene, RenderConfig(engine="fused"), device).render()``, and the
-differentiable train step on it, ``diff.make_train_step(..., engine="fused")``.
+It covers, through ``Renderer(scene, config, device).render()``:
+
+* the binned forward render of the reference scene (``engine="fused"``
+  routed to ``binned``; kernels 1 and 2);
+* the whole-sample fused engine (kernel 4): single-block scenes such as
+  :func:`build_cornell_box_scene` (primaries through kernel 1), and the
+  jittered quality camera, ``CameraConfig(jitter=True)``, on any scene;
+
+and, through ``diff.make_train_step(..., engine="fused")``, the
+differentiable train step: the binned deferred-trace forward (kernels 1
+and 3) on multi-block scenes, kernel 4's ``emit_idx`` forward on
+single-block ones.
 """
 
 __version__ = "0.1.0"
 
-from pathtracerap_tpu import constants
-from pathtracerap_tpu.config import CameraConfig, RenderConfig
-from pathtracerap_tpu.io.bmp import read_bmp
-
+from . import constants
+from .config import CameraConfig, RenderConfig
+from .io.bmp import read_bmp
 from .diff import extract_params, image_loss, make_train_step, render_for_params
 from .render.wavefront import Renderer, effective_engine
-from .scene.build import SceneBuilder, build_reference_scene
+from .scene.build import SceneBuilder, build_cornell_box_scene, build_reference_scene
 from .scene.types import Material, MaterialType, SceneDevice, SceneHost, WorldTriangles
 
 __all__ = [
@@ -35,6 +43,7 @@ __all__ = [
     "make_train_step",
     "render_for_params",
     "SceneBuilder",
+    "build_cornell_box_scene",
     "build_reference_scene",
     "Material",
     "MaterialType",

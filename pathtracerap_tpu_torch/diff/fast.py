@@ -4,7 +4,8 @@
 The discrete part of traversal, which triangle each bounce hits, comes
 from the kernels under ``torch.no_grad()`` on a detached world: the
 primary hits from kernel 1, every later bounce from kernel 3 through the
-binned deferred-trace forward (:func:`make_idxs_multi`).  The continuous
+binned deferred-trace forward (:func:`make_idxs_multi`), or on a
+single-block scene from kernel 4's per-bounce index stream.  The continuous
 part is replayed differentiably at those frozen indices with plain torch
 ops (:func:`hit_from_index` + ``render.shade.shade`` per bounce, or
 :func:`replay_color_only` when only material colors are trained), so
@@ -17,12 +18,12 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from pathtracerap_tpu import constants
-
+from .. import constants
 from ..kernels import megakernel as MK
-from ..kernels.trace import RAY_TILE, _slab_margin, trace_pallas
+from ..kernels.trace import RAY_TILE, _slab_margin, ray_vectors, trace_pallas
 from ..ops.intersect import HitRecord
 from ..ops.math import cross3, dot3, normalize, normalize_guarded
+from ..ops.rng import chunk_uniforms
 from ..render.shade import RayState, gather_contribution, shade
 from ..scene.types import MaterialType, WorldTriangles
 
@@ -193,13 +194,16 @@ def render_samples_fused_diff(
     samples ``0 .. n_samples``.
 
     The kernels run under ``torch.no_grad()`` on the detached world and
-    record each sample's per-bounce winning index; the replay then builds
-    the only autograd graph: :func:`replay_color_only` when ``color_only``
-    (parity mode), else the full :func:`replay` under
+    record each sample's per-bounce winning index: the binned
+    deferred-trace forward (:func:`make_idxs_multi`) where
+    :func:`binned_forward_active`, else kernel 4's ``emit_idx`` stream
+    (single-block scenes).  The replay then builds the only autograd
+    graph: :func:`replay_color_only` when ``color_only`` (parity mode),
+    else the full :func:`replay` under
     ``torch.utils.checkpoint``, which keeps (indices, uniforms) per sample
     and recomputes the replay in the backward instead of holding every
     bounce's shading intermediates for every sample.  The uniforms are the
-    binned engine's (``chunk_uniforms``), so values match the forward
+    engines' own (``chunk_uniforms``), so values match the forward
     render's engine."""
     n = ro.shape[0]
     rd_n = normalize(rd)
@@ -211,17 +215,35 @@ def render_samples_fused_diff(
         ro_p, rd_p = ro, rd_n
     n_pad = ro_p.shape[0]
     sworld = world.detached()
-    if not binned_forward_active(sworld):
-        raise NotImplementedError(
-            "the fused emit_idx index-stream producer for single-block scenes is not "
-            "ported yet (ROADMAP A9, kernel B4)"
-        )
     ro_s, rd_s = ro_p.detach(), rd_p.detach()
     with torch.no_grad():
         hits0, idx0 = trace_pallas(sworld, ro_s, rd_s, return_idx=True)
         idx_col0 = torch.where(hits0.t < F_MAX, idx0 + 1, 0)
 
-    acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=ro.device)
+    def replay_any(idxs, u):
+        # the n real rays only: a padding ray's color can be exactly 0, and
+        # sqrt's backward there is 0 / 0 = NaN even under a zero cotangent
+        # (the JAX forward replays the padding too; ROADMAP queue C)
+        idxs, u = idxs[:n], u[:n]
+        if color_only and parity:
+            return replay_color_only(world, idxs, max_bounces)
+        return checkpoint(replay, world, ro, rd_n, idxs, u, max_bounces, parity,
+                          use_reentrant=False)
+
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=ro.device)
+    if not binned_forward_active(sworld):
+        # single-block scenes: kernel 4's emit_idx stream, one sample a launch
+        with torch.no_grad():
+            prim = MK.primary_pack(hits0, idx_col0)
+            w16 = ray_vectors(ro_s, rd_s)
+        for s in range(n_samples):
+            with torch.no_grad():
+                u = chunk_uniforms(key, s, max_bounces, n, n_pad, tile_base)
+                _, idxs = MK.sample_fused(w16, prim, u, sworld, max_bounces, parity,
+                                          use_primary=True, emit_idx=True)
+            acc = acc + replay_any(idxs, u)
+        return acc
+
     s0 = 0
     for ns in MK.sample_groups(n_samples):
         with torch.no_grad():
@@ -229,13 +251,6 @@ def render_samples_fused_diff(
                 sworld, ro_s, rd_s, hits0, idx_col0, key, s0, ns, n, max_bounces, parity, tile_base
             )
         for j in range(ns):
-            if color_only and parity:
-                contrib = replay_color_only(world, idxs[j], max_bounces)
-            else:
-                contrib = checkpoint(
-                    replay, world, ro_p, rd_p, idxs[j], u[j], max_bounces, parity,
-                    use_reentrant=False,
-                )
-            acc = acc + contrib
+            acc = acc + replay_any(idxs[j], u[j])
         s0 += ns
-    return acc[:n]
+    return acc

@@ -11,8 +11,9 @@ image is the mean of per-sample ``sqrt`` tone-mapped throughputs.
 Parameters are plain dicts of tensors (``extract_params``); a train step
 is :func:`loss_and_grad` (``torch.autograd.grad``) and the update
 ``p - lr * g``.  Only the ``engine="fused"`` path is ported (the binned
-deferred-trace forward of :mod:`.fast`); the per-bounce ``pallas`` and
-``mxu`` diff engines raise.
+deferred-trace forward of :mod:`.fast`, or on single-block scenes its
+fused ``emit_idx`` forward); the per-bounce ``pallas`` and ``mxu`` diff
+engines raise.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from ..kernels.megakernel import BINNED_SLAB_TILES
+from ..kernels.megakernel import BINNED_SLAB_TILES, FUSED_SLAB_TILES
 from ..ops.plucker import bake_world_triangles, trace_mxu
 from ..ops.rng import RNG_TILE
 from ..render.camera import generate_rays
 from ..scene.types import SceneDevice
-from .fast import render_samples_fused_diff
+from .fast import binned_forward_active, render_samples_fused_diff
 
 DEFAULT_PARAMS: Tuple[str, ...] = ("mat_color",)
 DEFAULT_DIFF_ENGINE = "pallas"
@@ -70,9 +71,9 @@ def render_for_params(
     world = bake_world_triangles(s)
     if ro is None:
         ro, rd = generate_rays(camera, resolution, device=s.device)
-    # the binned engine's slabs (the fused emit_idx forward of single-block
-    # scenes, ROADMAP A9, would keep 64-tile slabs)
-    slab = BINNED_SLAB_TILES * RNG_TILE
+    # the binned forward's slabs, or the fused emit_idx forward's 64 tiles
+    tiles = BINNED_SLAB_TILES if binned_forward_active(world) else FUSED_SLAB_TILES
+    slab = tiles * RNG_TILE
     # parity training of material colors only never reads geometry in
     # the color path: the color-only replay skips the geometry gathers
     color_only = parity and set(params.keys()) <= {"mat_color"}

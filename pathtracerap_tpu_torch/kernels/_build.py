@@ -49,6 +49,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p, p]
     lib.ptt_bounce_trace.restype = i
     lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, i, p, p, p]
+    lib.ptt_sample_fused.restype = i
+    lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

@@ -1,20 +1,26 @@
-"""Binned wavefront engine (port of the binned half of
-``pathtracerap_tpu/pallas/megakernel.py``).
+"""The megakernel engines (port of ``pathtracerap_tpu/pallas/megakernel.py``).
 
-Per bounce the wavefront is re-sorted by (direction octant, origin
-Morton), per-tile worklists of 128-triangle sub-blocks are built in plain
-torch, and kernel 2, ``csrc/bounce.cu``, traces and shades one bounce.  It
-replaces the TPU kernel ``pallas/megakernel.py::_bounce_kernel``.  The
+**Binned.** Per bounce the wavefront is re-sorted by (direction octant,
+origin Morton), per-tile worklists of 128-triangle sub-blocks are built in
+plain torch, and kernel 2, ``csrc/bounce.cu``, traces and shades one
+bounce.  It replaces the TPU kernel ``_bounce_kernel``.  The
 differentiable forward (:mod:`..diff.fast`) defers the shading instead:
 kernel 3, ``csrc/bounce_trace.cu``, only traces (it replaces
 ``_bounce_trace_kernel``) and :func:`defer_shade_apply` shades in torch.
 
-:func:`bounce` and :func:`bounce_trace` are the kernels' wrappers: on a
-CUDA tensor they launch the kernel (counted in ``.launches``), on a CPU
-tensor they run the plain versions :func:`bounce_plain` and
-:func:`bounce_trace_plain`, which trace every real block (the worklist
-contract makes the hit identical); the former shades with the kernel's
-math.
+**Fused.** Kernel 4, ``csrc/megakernel.cu``, runs a whole sample, every
+bounce of it, in one launch and sweeps every real block per bounce: it
+replaces ``_megakernel``.  :func:`render_samples_fused` drives it for
+single-block scenes and the jittered quality camera, and the
+differentiable forward of single-block scenes reads its per-bounce index
+stream (``emit_idx``).
+
+:func:`bounce`, :func:`bounce_trace` and :func:`sample_fused` are the
+kernels' wrappers: on a CUDA tensor they launch the kernel (counted in
+``.launches``), on a CPU tensor they run the plain versions
+:func:`bounce_plain`, :func:`bounce_trace_plain` and
+:func:`sample_fused_plain`, which trace every real block (the worklist
+contract makes the hit identical) and shade with the kernels' math.
 """
 
 from __future__ import annotations
@@ -23,16 +29,18 @@ import ctypes
 
 import torch
 
-from pathtracerap_tpu import constants
-
+from .. import constants
 from ..ops.intersect import HitRecord
-from ..ops.math import cross3, normalize, normalize_rsqrt
+from ..ops.math import normalize, normalize_rsqrt
 from ..ops.plucker import _morton3
-from ..ops.rng import RNG_TILE, chunk_uniforms
+from ..ops.rng import RNG_TILE, chunk_jitter_uniforms, chunk_uniforms
 from ..render.shade import RayState, shade
 from ..scene.types import WorldTriangles
 from . import _build
-from .trace import _check, _slab_margin, _tile_block_lists, nearest_hit_fused_plain, trace_pallas
+from .trace import (
+    RAY_TILE, _check, _slab_margin, _tile_block_lists, nearest_hit_fused_plain, ray_vectors,
+    trace_pallas,
+)
 
 F_MAX = constants.FLOAT_MAX
 
@@ -44,6 +52,10 @@ SMALL_TILE_MAX_UNITS = 32  # worklist tile of 256 rays up to this many units
 BINNED_SAMPLE_BATCH = 4  # samples sorted together as one wavefront
 BINNED_SLAB_TILES = 16  # facade slab, in 8192-ray RNG tiles
 STATE_COLS = 10  # [orig(0:3), dir(3:6), color(6:9), remaining(9)]
+SAMPLE_BATCH = 8  # samples per fused launch, parity camera
+FUSED_SLAB_TILES = 64  # fused facade slab, in 8192-ray RNG tiles
+GATE_BLOCKS = 8  # the fused sweep gates blocks on their AABB above this many
+SWEEP_RUN = 128  # triangles kernel 4 stages per shared-memory run
 
 
 def use_sub_blocks(world: WorldTriangles) -> bool:
@@ -99,20 +111,18 @@ def _attr_hits(world: WorldTriangles, t: torch.Tensor, idx: torch.Tensor) -> Hit
 
 
 def _ray_vectors(pack: torch.Tensor) -> torch.Tensor:
-    """The (N, 16) ray vectors ``[d_n, orig x d_n, orig, -1, alive, 0...]``
-    of a state pack, with the kernels' rsqrt normalization."""
-    n = pack.shape[0]
-    orig = pack[:, 0:3]
-    d_n = normalize_rsqrt(pack[:, 3:6])
-    return torch.cat(
-        [
-            d_n, cross3(orig, d_n), orig,
-            torch.full((n, 1), -1.0, device=pack.device),
-            (pack[:, 9] > 0.0).to(torch.float32)[:, None],
-            torch.zeros((n, 5), device=pack.device),
-        ],
-        dim=1,
-    )
+    """The (N, 16) ray vectors of a state pack, with the kernels' rsqrt
+    normalization."""
+    alive_f = (pack[:, 9] > 0.0).to(torch.float32)[:, None]
+    return ray_vectors(pack[:, 0:3], normalize_rsqrt(pack[:, 3:6]), alive_f)
+
+
+def _shade_pack(pack: torch.Tensor, hits: HitRecord, u: torch.Tensor, parity: bool):
+    """One shading step of a (N, 10) state pack with the kernels' math
+    (rsqrt normalization, as the TPU kernels' ``_shade_inkernel``)."""
+    state = RayState(orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9], remaining=pack[:, 9])
+    s = shade(state, hits, u, parity=parity, norm=normalize_rsqrt)
+    return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1)
 
 
 def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, parity: bool):
@@ -122,13 +132,10 @@ def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, par
     normalization, as the TPU kernel's ``_shade_inkernel_t``).  Returns
     (new state, hit triangle index or -1)."""
     bounce_plain.calls += 1
-    orig, dirn, remaining = pack[:, 0:3], pack[:, 3:6], pack[:, 9]
     t, idx = nearest_hit_fused_plain(
         _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block
     )
-    state = RayState(orig=orig, dir=dirn, color=pack[:, 6:9], remaining=remaining)
-    s = shade(state, _attr_hits(world, t, idx), u, parity=parity, norm=normalize_rsqrt)
-    return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1), idx
+    return _shade_pack(pack, _attr_hits(world, t, idx), u, parity), idx
 
 
 bounce_plain.calls = 0
@@ -398,6 +405,228 @@ def render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces, parity=
         render_samples_binned(
             world, ro[s0:s0 + slab], rd[s0:s0 + slab], key, n_samples, max_bounces,
             parity=parity, tile_base=s0 // RNG_TILE,
+        )
+        for s0 in range(0, ro.shape[0], slab)
+    ]
+    return torch.cat(parts)
+
+
+# ---------------------------------------------------------------------------
+# Fused whole-sample engine: kernel 4 runs every bounce of a sample.
+# ---------------------------------------------------------------------------
+
+
+def primary_pack(hits: HitRecord, idx1=None) -> torch.Tensor:
+    """The (N, 16) primary-hit rows kernel 4 shades bounce 0 from:
+    ``[t, shade_n, mat_type, rgb, geom_n, idx+1, ri, 0, 0, 0]``.  ``idx1``
+    (N,) is the hit's index + 1 that the ``emit_idx`` stream repeats at
+    bounce 0; the render leaves it 0."""
+    n = hits.t.shape[0]
+    dev = hits.t.device
+    col11 = (
+        torch.zeros((n, 1), device=dev) if idx1 is None else idx1.to(torch.float32)[:, None]
+    )
+    return torch.cat(
+        [
+            hits.t[:, None], hits.normal, hits.mat_type.to(torch.float32)[:, None],
+            hits.mat_color, hits.geom_normal, col11, hits.mat_ri[:, None],
+            torch.zeros((n, 3), device=dev),
+        ],
+        dim=1,
+    )
+
+
+def _sample_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_primary: bool, live):
+    """One sample of kernel 4's plain version: (contribution (N, 3),
+    index stream (N, max_bounces) int32)."""
+    n = w16.shape[0]
+    dev = w16.device
+    pack = torch.cat(
+        [w16[:, 6:9], w16[:, 0:3], torch.ones((n, 3), device=dev),
+         torch.full((n, 1), float(max_bounces), device=dev)],
+        dim=1,
+    )
+    cols = []
+    for b in range(max_bounces):
+        alive = pack[:, 9] > 0.0
+        if live is not None:
+            live.append(alive.sum())
+        if b == 0 and use_primary:
+            hits = HitRecord(
+                t=prim[:, 0], normal=prim[:, 1:4], mat_type=prim[:, 4], mat_color=prim[:, 5:8],
+                geom_normal=prim[:, 8:11], mat_ri=prim[:, 12],
+            )
+            idx1 = prim[:, 11].to(torch.int32)
+        else:
+            t, idx = nearest_hit_fused_plain(
+                _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block
+            )
+            hits, idx1 = _attr_hits(world, t, idx), idx + 1
+        cols.append(torch.where(alive, idx1, 0))
+        pack = _shade_pack(pack, hits, u[:, 4 * b:4 * b + 4], parity)
+    return torch.sqrt(torch.clamp(pack[:, 6:9], min=0.0)), torch.stack(cols, dim=1)
+
+
+def sample_fused_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_primary: bool,
+                       emit_idx: bool = False, live=None):
+    """Plain version of kernel 4.  Per sample: bounce 0 from the primary
+    rows (``use_primary``) or traced, every later bounce traced over every
+    real block, the winner's attribute rows gathered and shaded with the
+    kernel's math.  Returns the (N, 3) contribution ``sqrt(max(color,
+    0))``, summed in sample order when ``u`` is (ns, N, 4 * max_bounces);
+    with ``emit_idx`` also the (N, max_bounces) int32 stream of index + 1
+    where the ray was live and hit, else 0.  ``live``, a list, receives
+    each (sample, bounce)'s count of live rays (0-d tensors)."""
+    sample_fused_plain.calls += 1
+    acc = idxs = None
+    for us in (u if u.dim() == 3 else u[None]):
+        c, idxs = _sample_plain(w16, prim, us, world, max_bounces, parity, use_primary, live)
+        acc = c if acc is None else acc + c
+    return (acc, idxs) if emit_idx else acc
+
+
+sample_fused_plain.calls = 0
+
+
+def sample_fused(
+    w16: torch.Tensor,  # (N, 16) ray vectors (fused_rays), N a multiple of RAY_TILE
+    prim: torch.Tensor,  # (N, 16) primary-hit rows (primary_pack); read when use_primary
+    u: torch.Tensor,  # (N, 4 * max_bounces) one sample's uniforms, or (ns, N, 4 * max_bounces)
+    world: WorldTriangles,
+    max_bounces: int,
+    parity: bool,
+    use_primary: bool,
+    emit_idx: bool = False,
+):
+    """Whole samples through kernel 4: every bounce, every real block.
+    Returns the (N, 3) contribution (summed over the samples of a batch),
+    and with ``emit_idx`` (one sample only) the (N, max_bounces) int32
+    index + 1 stream.  Launches kernel 4 for CUDA tensors (counted in
+    ``sample_fused.launches``), runs the plain version for CPU ones."""
+    n = w16.shape[0]
+    batched = u.dim() == 3
+    if n % RAY_TILE:
+        raise ValueError(f"{n} rays are not a multiple of the {RAY_TILE}-ray tile")
+    if emit_idx and batched:
+        raise ValueError("emit_idx runs one sample per launch")
+    if w16.device.type == "cpu":
+        return sample_fused_plain(w16, prim, u, world, max_bounces, parity, use_primary, emit_idx)
+    if w16.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w16.device}")
+    tb = world.tri_block
+    if tb % SWEEP_RUN:
+        raise ValueError(f"tri_block {tb} is not a multiple of {SWEEP_RUN}")
+    dev = w16.device
+    ns = u.shape[0] if batched else 1
+    ucols = 4 * max_bounces
+    ops, attr, aabb = world.fused_ops, world.attr_rows, world.block_aabb
+    nb = aabb.shape[0]
+    _check(w16, "w16", torch.float32, (n, 16), dev)
+    _check(prim, "prim", torch.float32, (n, 16), dev)
+    _check(u, "u", torch.float32, (ns, n, ucols) if batched else (n, ucols), dev)
+    _check(ops, "fused_ops", torch.float32, (16, ops.shape[1]), dev)
+    _check(attr, "attr_rows", torch.float32, (16, ops.shape[1] // 4), dev)
+    _check(aabb, "block_aabb", torch.float32, (nb, 8), dev)
+    if ops.shape[1] < nb * 4 * tb:
+        raise ValueError("fused_ops holds fewer blocks than block_aabb")
+    margin = _slab_margin(aabb).reshape(1)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    idx = torch.empty((n, max_bounces), dtype=torch.int32, device=dev) if emit_idx else None
+    err = _build.library().ptt_sample_fused(
+        ctypes.c_void_p(w16.data_ptr()),
+        ctypes.c_void_p(prim.data_ptr()),
+        ctypes.c_void_p(u.data_ptr()),
+        ctypes.c_int(n),
+        ctypes.c_int(ns),
+        ctypes.c_int(max_bounces),
+        ctypes.c_void_p(ops.data_ptr()),
+        ctypes.c_int(ops.shape[1]),
+        ctypes.c_void_p(attr.data_ptr()),
+        ctypes.c_int(attr.shape[1]),
+        ctypes.c_void_p(aabb.data_ptr()),
+        ctypes.c_void_p(margin.data_ptr()),
+        ctypes.c_int(nb),
+        ctypes.c_int(tb),
+        ctypes.c_int(int(parity)),
+        ctypes.c_int(int(use_primary)),
+        ctypes.c_int(int(nb > GATE_BLOCKS)),
+        ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(idx.data_ptr() if emit_idx else None),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _build.check(err, "ptt_sample_fused")
+    sample_fused.launches += 1
+    return (out, idx) if emit_idx else out
+
+
+sample_fused.launches = 0
+
+
+def render_samples_fused(
+    world: WorldTriangles,
+    ro: torch.Tensor,
+    rd: torch.Tensor,
+    key: torch.Tensor,
+    n_samples: int,
+    max_bounces: int,
+    parity: bool = True,
+    tile_base: int = 0,
+    jitter_step=None,
+) -> torch.Tensor:
+    """Accumulate samples ``0 .. n_samples`` through kernel 4; returns the
+    (N, 3) contribution sums (JAX ``render_samples_fused``).
+
+    Rays are padded to ``RAY_TILE``.  Without ``jitter_step`` the primary
+    hits are traced once (kernel 1) and shared by every sample, which go
+    in batches of ``SAMPLE_BATCH`` per launch; the batch sums in sample
+    order, then adds to the total.  With ``jitter_step`` (pixel steps of
+    the quality camera) every sample moves the unnormalized directions by
+    its jitter, normalizes them and traces its primaries in the kernel,
+    one launch per sample."""
+    n = ro.shape[0]
+    dev = ro.device
+    rd_n = normalize(rd)
+    pad = (-n) % RAY_TILE
+    if pad:
+        ro_p = torch.cat([ro, ro.new_zeros(pad, 3)])
+        rd_p = torch.cat([rd_n, rd_n.new_ones(pad, 3)])
+        rd_raw = torch.cat([rd, rd.new_ones(pad, 3)])
+    else:
+        ro_p, rd_p, rd_raw = ro, rd_n, rd
+    n_pad = ro_p.shape[0]
+    acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+
+    if jitter_step is None:
+        prim = primary_pack(trace_pallas(world, ro_p, rd_p))
+        w16 = ray_vectors(ro_p, rd_p)
+        for s0 in range(0, n_samples, SAMPLE_BATCH):
+            ns = min(SAMPLE_BATCH, n_samples - s0)
+            u = chunk_uniforms(key, range(s0, s0 + ns), max_bounces, n, n_pad, tile_base)
+            u = u.reshape(ns, n_pad, 4 * max_bounces)
+            acc = acc + sample_fused(w16, prim, u, world, max_bounces, parity, True)
+        return acc[:n]
+
+    prim = torch.zeros((n_pad, 16), dtype=torch.float32, device=dev)
+    zero = torch.zeros((n_pad, 1), dtype=torch.float32, device=dev)
+    for s in range(n_samples):
+        u = chunk_uniforms(key, s, max_bounces, n, n_pad, tile_base)
+        ju = chunk_jitter_uniforms(key, s, n, n_pad, tile_base)
+        # the jitter moves the unnormalized image-plane direction (pix - eye)
+        rd_s = rd_raw + torch.cat([ju[:, 0:1] * jitter_step[0], ju[:, 1:2] * jitter_step[1], zero], 1)
+        w = ray_vectors(ro_p, normalize(rd_s))
+        acc = acc + sample_fused(w, prim, u, world, max_bounces, parity, False)
+    return acc[:n]
+
+
+def render_accumulate_fused(world, ro, rd, key, n_samples, max_bounces, parity=True,
+                            jitter_step=None):
+    """The facade's fused loop: ``FUSED_SLAB_TILES`` RNG tiles of rays per
+    call, with the global RNG tile numbering ``tile_base = s0 // 8192``."""
+    slab = FUSED_SLAB_TILES * RNG_TILE
+    parts = [
+        render_samples_fused(
+            world, ro[s0:s0 + slab], rd[s0:s0 + slab], key, n_samples, max_bounces,
+            parity=parity, tile_base=s0 // RNG_TILE, jitter_step=jitter_step,
         )
         for s0 in range(0, ro.shape[0], slab)
     ]

@@ -19,9 +19,7 @@ import ctypes
 
 import torch
 
-from pathtracerap_tpu import constants
-
-from ..ops.intersect import HitRecord
+from .. import constants
 from ..ops.math import cross3, normalize
 from ..ops.plucker import hit_record
 from ..scene.types import WorldTriangles
@@ -230,6 +228,21 @@ def nearest_hit_fused(
 nearest_hit_fused.launches = 0
 
 
+def ray_vectors(ro: torch.Tensor, rd_n: torch.Tensor, alive_f=None) -> torch.Tensor:
+    """The (N, 16) ray vectors ``[d, orig x d, orig, -1, alive, 0...]`` the
+    traversal kernels take, of normalized directions; ``alive_f`` (N, 1)
+    f32 defaults to ones."""
+    n = ro.shape[0]
+    dev = ro.device
+    if alive_f is None:
+        alive_f = torch.ones((n, 1), device=dev)
+    return torch.cat(
+        [rd_n, cross3(ro, rd_n), ro, torch.full((n, 1), -1.0, device=dev), alive_f,
+         torch.zeros((n, 5), device=dev)],
+        dim=-1,
+    )
+
+
 def primary_inputs(world: WorldTriangles, ro, rd, alive=None):
     """The ray vectors and worklists kernel 1 takes: rays padded to a
     multiple of ``RAY_TILE`` (padding lanes dead), ``w16`` (N, 16) and the
@@ -247,15 +260,7 @@ def primary_inputs(world: WorldTriangles, ro, rd, alive=None):
         ro = torch.cat([ro, ro.new_zeros(pad, 3)])
         rd_n = torch.cat([rd_n, rd_n.new_ones(pad, 3)])
         alive_f = torch.cat([alive_f, alive_f.new_zeros(pad, 1)])
-    n_pad = ro.shape[0]
-    w16 = torch.cat(
-        [
-            rd_n, cross3(ro, rd_n), ro,
-            torch.full((n_pad, 1), -1.0, device=dev), alive_f,
-            torch.zeros((n_pad, 5), device=dev),
-        ],
-        dim=-1,
-    )
+    w16 = ray_vectors(ro, rd_n, alive_f)
     margin = _slab_margin(world.block_aabb)
     block_list = _tile_block_lists(world.block_aabb, ro, rd_n, alive_f, RAY_TILE, margin)
     return w16, block_list

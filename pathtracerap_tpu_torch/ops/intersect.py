@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from pathtracerap_tpu import constants
+from .. import constants
 
 F_MAX = constants.FLOAT_MAX
 

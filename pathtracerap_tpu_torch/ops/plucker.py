@@ -15,8 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from pathtracerap_tpu import constants
-
+from .. import constants
 from ..scene.types import SceneDevice, WorldTriangles
 from .intersect import HitRecord
 from .math import cross3, dot3, inv3x3, normalize, normalize_guarded

@@ -49,9 +49,10 @@ def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def prng_key(seed: int, device=None) -> torch.Tensor:
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` (32-bit seeds, as jax without x64) as
-    a (2,) int64 tensor."""
+    a (2,) int64 tensor on ``device``: the card unless the caller asks for
+    the CPU, as the port's scenes are."""
     if not 0 <= seed <= _MASK:
         raise ValueError(f"seed must be in [0, 2**32), got {seed}")
     return torch.tensor([0, seed], dtype=torch.int64, device=device)
@@ -89,6 +90,16 @@ def tile_uniforms(key, sample_index, depth, tile_index, tile_n: int) -> torch.Te
     return uniform(k, tile_n, DRAWS_PER_BOUNCE)
 
 
+def camera_jitter_uniforms(key, sample_index, tile_index, tile_n: int) -> torch.Tensor:
+    """(tile_n, 2) sub-pixel jitter offsets in [0, 1) for one RNG tile of
+    one sample (the quality camera): depth 0 of the (sample, depth, tile)
+    stream, which the shading steps (depths ``max_bounces .. 1``) never
+    draw.  ``tile_index`` may be an int tensor of shape (nt,): then every
+    tile is hashed in one pass and the result is (nt, tile_n, 2)."""
+    k = fold_in(bounce_key(key, sample_index, 0), tile_index)
+    return uniform(k, tile_n, 2)
+
+
 def _rng_tiling(n: int, rng_tile: int = RNG_TILE):
     """Uniforms are drawn in tiles of ``min(n, 8192)`` rays.  Returns
     (tile_n, n_tiles)."""
@@ -120,3 +131,16 @@ def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile
     if u.shape[2] < n_pad:
         u = torch.cat([u, u.new_zeros(u.shape[:2] + (n_pad - u.shape[2], 4))], dim=2)
     return u[:, :, :n_pad].permute(0, 2, 1, 3).reshape(-1, DRAWS_PER_BOUNCE * max_bounces)
+
+
+def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int = 0):
+    """(n_pad, 2) jitter offsets of one sample over the RNG tiles of an
+    ``n``-ray chunk, as the JAX fused engine draws them (``vmap`` of
+    :func:`camera_jitter_uniforms` over tiles ``tile_base + k``): rows past
+    the drawn tiles are zero, rows past ``n_pad`` are dropped."""
+    tile_n, nt = _rng_tiling(n)
+    tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=key.device)
+    u = camera_jitter_uniforms(key, sample_index, tiles, tile_n).reshape(-1, 2)
+    if u.shape[0] < n_pad:
+        u = torch.cat([u, u.new_zeros(n_pad - u.shape[0], 2)])
+    return u[:n_pad]

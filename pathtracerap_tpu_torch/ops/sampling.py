@@ -20,8 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from pathtracerap_tpu import constants
-
+from .. import constants
 from .math import cross3, dot3, normalize, reflect_parity, reflect_standard
 
 _SQRT13 = constants.SQRT_OF_ONE_THIRD

@@ -11,8 +11,7 @@ import dataclasses
 
 import torch
 
-from pathtracerap_tpu import constants
-
+from .. import constants
 from ..ops.intersect import HitRecord
 from ..ops.math import dot3, normalize, reflect_parity, reflect_standard
 from ..ops.sampling import coat_scatter, cosine_hemisphere, metal_scatter, refract_scatter

@@ -1,9 +1,11 @@
 """The render facade (port of ``pathtracerap_tpu/render/wavefront.py``).
 
 ``Renderer(scene, config, device).render(seed)`` bakes the world once, then
-accumulates the samples through the binned engine
-(:mod:`..kernels.megakernel`): primary hits through kernel 1, each later
-bounce through kernel 2.  Engines the port does not have yet raise
+accumulates the samples through one of the megakernel engines
+(:mod:`..kernels.megakernel`): ``binned`` (primary hits through kernel 1,
+each later bounce through kernel 2) for scenes of two or more blocks, or
+``fused`` (kernel 4, whole samples) for single-block scenes and the
+jittered quality camera.  Engines the port does not have yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -14,20 +16,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pathtracerap_tpu.config import RenderConfig
-from pathtracerap_tpu.io.bmp import quantize_image, write_bmp
-
-from ..kernels.megakernel import render_accumulate_binned
+from ..config import RenderConfig
+from ..io.bmp import quantize_image, write_bmp
+from ..kernels.megakernel import render_accumulate_binned, render_accumulate_fused
 from ..ops.plucker import bake_world_triangles
 from ..ops.rng import prng_key
 from ..scene.types import SceneDevice
-from .camera import generate_rays
+from .camera import generate_rays, jitter_step
 
 _MISSING = {
     "mxu": "the brute-force mxu engine as a render engine (ROADMAP A10)",
     "parity": "the parity DDA engine (ROADMAP A10)",
     "pallas": "the per-bounce dense pallas engine (ROADMAP A11, kernel B5)",
-    "fused": "the whole-sample fused engine (ROADMAP A9, kernel B4)",
 }
 
 
@@ -55,15 +55,13 @@ class Renderer:
             if want.type != scene.device.type or want.index not in (None, scene.device.index):
                 raise ValueError(f"scene is on {scene.device}, renderer asked for {want}")
         self.device = scene.device
-        if config.camera.jitter:
-            raise NotImplementedError("the jittered quality camera (ROADMAP A9)")
         self.scene = scene
         self.config = config
         self.world = (
             bake_world_triangles(scene) if config.engine in ("fused", "binned") else None
         )
-        self.engine = effective_engine(config.engine, self.world, False)
-        if self.engine != "binned":
+        self.engine = effective_engine(config.engine, self.world, config.camera.jitter)
+        if self.engine not in ("binned", "fused"):
             raise NotImplementedError(
                 f"engine {config.engine!r} routes to {self.engine!r}: "
                 + _MISSING.get(self.engine, "not an engine of this package")
@@ -77,10 +75,15 @@ class Renderer:
         key = prng_key(seed, device=self.device)
         w, h = cfg.resolution
         ro, rd = generate_rays(cfg.camera, cfg.resolution, device=self.device)
-        acc = render_accumulate_binned(
-            self.world, ro, rd, key, cfg.samples_per_pixel, cfg.max_bounces, parity=cfg.parity
-        )
-        return acc.reshape(h, w, 3) / cfg.samples_per_pixel
+        spp, bounces = cfg.samples_per_pixel, cfg.max_bounces
+        if self.engine == "fused":
+            acc = render_accumulate_fused(
+                self.world, ro, rd, key, spp, bounces, parity=cfg.parity,
+                jitter_step=jitter_step(cfg.camera, cfg.resolution),
+            )
+        else:
+            acc = render_accumulate_binned(self.world, ro, rd, key, spp, bounces, parity=cfg.parity)
+        return acc.reshape(h, w, 3) / spp
 
     def render_to_bmp(self, path: str, seed: Optional[int] = None) -> torch.Tensor:
         image = self.render(seed=seed)

@@ -2,7 +2,9 @@
 
 :class:`SceneBuilder` accumulates meshes and instances and finalizes into
 the NumPy :class:`~pathtracerap_tpu_torch.scene.types.SceneHost`;
-:func:`build_reference_scene` reproduces the reference scene from data.
+:func:`build_reference_scene` reproduces the reference scene from data and
+:func:`build_cornell_box_scene` builds the synthetic single-block test
+scene.
 Transform conventions match glm (column vectors, ``T @ R @ S``).  The
 uniform-grid build of the reference package is left out: it serves only
 the parity DDA engine, which this package does not have yet.
@@ -15,9 +17,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from pathtracerap_tpu import constants
-from pathtracerap_tpu.io.obj import ObjMesh, load_obj
-
+from .. import constants
+from ..io.obj import ObjMesh, load_obj
 from .types import Material, MaterialType, SceneHost
 
 ASSET_DIR = os.path.join(
@@ -65,7 +66,7 @@ class SceneBuilder:
         return len(self._meshes) - 1
 
     def add_mesh_file(self, path: str, scale: float = constants.BASE_MODEL_SCALE) -> int:
-        """Load a pre-triangulated OBJ file (``pathtracerap_tpu.io.obj``)."""
+        """Load a pre-triangulated OBJ file (:func:`..io.obj.load_obj`)."""
         return self.add_mesh(load_obj(path, scale=scale))
 
     def add_instance(
@@ -179,4 +180,97 @@ def build_reference_scene(asset_dir: Optional[str] = None) -> SceneHost:
     add(light, Material(M.EMISSIVE, (0.99, 0.99, 0.99)),
         translate=(550.0, 375.0, 0.0), rotate_y_deg=0.0, scale=(0.1, 0.2, 0.2))
 
+    return b.build()
+
+
+# -------------------------------------------------- synthetic test scenes
+def _quad(v00, v10, v11, v01):
+    """Two triangles for a quad, with per-vertex normals from the face."""
+    a, b, c, d = (np.asarray(p, np.float32) for p in (v00, v10, v11, v01))
+    n = np.cross(b - a, c - a)
+    n = n / np.linalg.norm(n)
+    pos = np.stack([a, b, c, d])
+    nrm = np.tile(n.astype(np.float32), (4, 1))
+    tris = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+    return pos, nrm, tris
+
+
+def _mesh(pos: np.ndarray, nrm: np.ndarray, tris: np.ndarray) -> ObjMesh:
+    return ObjMesh(
+        positions=pos, normals=nrm, uvs=np.zeros((pos.shape[0], 2), np.float32),
+        triangles=tris, bbox_min=pos.min(axis=0), bbox_max=pos.max(axis=0),
+    )
+
+
+def make_box_mesh(size=(1.0, 1.0, 1.0), inward: bool = False) -> ObjMesh:
+    """Axis-aligned box mesh centered at the origin (12 triangles)."""
+    sx, sy, sz = (s / 2.0 for s in size)
+    c = np.array(
+        [[-sx, -sy, -sz], [sx, -sy, -sz], [sx, sy, -sz], [-sx, sy, -sz],
+         [-sx, -sy, sz], [sx, -sy, sz], [sx, sy, sz], [-sx, sy, sz]],
+        np.float32,
+    )
+    faces = [
+        (c[0], c[1], c[2], c[3]),  # -z
+        (c[5], c[4], c[7], c[6]),  # +z
+        (c[4], c[0], c[3], c[7]),  # -x
+        (c[1], c[5], c[6], c[2]),  # +x
+        (c[4], c[5], c[1], c[0]),  # -y
+        (c[3], c[2], c[6], c[7]),  # +y
+    ]
+    pos, nrm, tris = [], [], []
+    for k, quad in enumerate(faces):
+        if inward:
+            quad = tuple(reversed(quad))  # flipped winding: normals point inward
+        p, n, t = _quad(*quad)
+        pos.append(p)
+        nrm.append(n)
+        tris.append(t + 4 * k)
+    return _mesh(np.concatenate(pos), np.concatenate(nrm), np.concatenate(tris).astype(np.int32))
+
+
+def make_sphere_mesh(radius: float = 1.0, subdiv: int = 16) -> ObjMesh:
+    """UV-sphere triangle mesh centered at the origin with smooth normals."""
+    n_lat = max(3, subdiv)
+    n_lon = max(3, 2 * subdiv)
+    theta = np.linspace(0.0, np.pi, n_lat + 1)
+    phi = np.linspace(0.0, 2 * np.pi, n_lon, endpoint=False)
+    tt, pp = np.meshgrid(theta, phi, indexing="ij")
+    pts = np.stack(
+        [np.sin(tt) * np.cos(pp), np.cos(tt), np.sin(tt) * np.sin(pp)], axis=-1
+    ).reshape(-1, 3).astype(np.float32)
+
+    def vid(i, j):
+        return i * n_lon + (j % n_lon)
+
+    tris = []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = vid(i, j), vid(i, j + 1)
+            c, d = vid(i + 1, j), vid(i + 1, j + 1)
+            if i > 0:
+                tris.append((a, b, c))
+            if i < n_lat - 1:
+                tris.append((b, d, c))
+    return _mesh(pts * np.float32(radius), pts.copy(), np.asarray(tris, np.int32))
+
+
+def build_cornell_box_scene(size: float = 400.0) -> SceneHost:
+    """Cornell-box-like diffuse test scene (BASELINE.json config 1): a
+    large diffuse enclosing box, two diffuse blocks and one emissive
+    ceiling panel from synthetic meshes: 48 world triangles, one
+    traversal block."""
+    b = SceneBuilder()
+    room = b.add_mesh(make_box_mesh((size, size, size)))
+    block = b.add_mesh(make_box_mesh((size * 0.15, size * 0.3, size * 0.15)))
+    panel = b.add_mesh(make_box_mesh((size * 0.3, size * 0.02, size * 0.3)))
+
+    M = MaterialType
+    b.add_instance(room, Material(M.DIFFUSE, (0.85, 0.85, 0.85)))
+    b.add_instance(block, Material(M.DIFFUSE, (0.9, 0.2, 0.2)),
+                   translate=(-size * 0.2, -size * 0.33, -size * 0.1), rotate_y_deg=20.0)
+    b.add_instance(block, Material(M.DIFFUSE, (0.2, 0.9, 0.2)),
+                   translate=(size * 0.2, -size * 0.33, size * 0.1), rotate_y_deg=-15.0)
+    b.add_instance(panel, Material(M.EMISSIVE, (0.99, 0.99, 0.99)),
+                   translate=(0.0, size * 0.48, 0.0))
     return b.build()

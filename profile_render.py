@@ -1,12 +1,15 @@
 """Where the time of one render, or of one train step, goes on one GPU.
 
     python3 profile_render.py                       # the render
+    python3 profile_render.py --quality             # the jittered quality render
     python3 profile_render.py --train mat_color     # bench.py's train step
     python3 profile_render.py --train vertex_pos    # the same in quality mode
 
 The render is the reference scene at the benchmark configuration
 (1000x800, 24 spp, 5 bounces, ``engine="fused"`` routed to the binned
-engine) through the port's ``Renderer``.  The train step is
+engine) through the port's ``Renderer``; ``--quality`` renders it with the
+jittered quality camera (``parity=False``, ``CameraConfig(jitter=True)``),
+which stays on the whole-sample fused engine, kernel 4.  The train step is
 ``make_train_step`` at 1000x800, 8 spp, 5 bounces, ``engine="fused"`` on
 ``mat_color`` (parity mode, bench.py:84-102), or its forward and backward on
 ``vertex_pos`` in quality mode.  Each is run once to warm up, three times
@@ -48,14 +51,15 @@ def busy_us(spans) -> float:
     return busy
 
 
-def render_fn(dev):
-    from pathtracerap_tpu_torch import RenderConfig, Renderer, build_reference_scene
+def render_fn(dev, quality: bool = False):
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, build_reference_scene
 
     cfg = RenderConfig(
-        resolution=RESOLUTION, samples_per_pixel=SPP, max_bounces=MAX_BOUNCES, engine="fused"
+        resolution=RESOLUTION, samples_per_pixel=SPP, max_bounces=MAX_BOUNCES, engine="fused",
+        parity=not quality, camera=CameraConfig(jitter=quality),
     )
     r = Renderer(build_reference_scene().to_device(dev), cfg, device=dev)
-    return r.render, {"engine": r.engine}
+    return r.render, {"engine": r.engine, "quality": quality}
 
 
 def train_fn(dev, param: str):
@@ -84,8 +88,11 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--train", choices=("mat_color", "vertex_pos"),
-                    help="profile a train step on this parameter instead of the render")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--train", choices=("mat_color", "vertex_pos"),
+                      help="profile a train step on this parameter instead of the render")
+    what.add_argument("--quality", action="store_true",
+                      help="profile the jittered quality render instead of the parity one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device", file=sys.stderr)
@@ -99,7 +106,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
 
-    run, what = train_fn(dev, args.train) if args.train else render_fn(dev)
+    run, what = train_fn(dev, args.train) if args.train else render_fn(dev, args.quality)
     run()  # warm-up: kernel build and first launches
 
     def wall() -> float:

@@ -84,7 +84,7 @@ def wavefront(worlds, rays):
     ro, rd = rays
     rd_n = normalize(rd)
     hits0 = trace_pallas(world, ro, rd_n)
-    pack, u_flat = TM.first_wavefront(world, ro, rd_n, hits0, prng_key(5), 0, 2, ro.shape[0], 4, True, 0)
+    pack, u_flat = TM.first_wavefront(world, ro, rd_n, hits0, prng_key(5, "cpu"), 0, 2, ro.shape[0], 4, True, 0)
     pix = torch.arange(pack.shape[0])
     pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
     return pack, u_flat[:, 4:8][pix]
@@ -128,7 +128,7 @@ def test_render_samples_binned_matches_jax(worlds, n_samples, resolution):
     world, jw = worlds
     ro, rd = generate_rays(RenderConfig().camera, resolution)
     jro, jrd = jax_generate_rays(RenderConfig().camera, resolution)
-    port = TM.render_samples_binned(world, ro, rd, prng_key(7), n_samples, 4)
+    port = TM.render_samples_binned(world, ro, rd, prng_key(7, "cpu"), n_samples, 4)
     ref = np.asarray(JM.render_samples_binned(jw, jro, jrd, jax.random.PRNGKey(7),
                                               n_samples=n_samples, max_bounces=4))
     np.testing.assert_allclose(port.numpy(), ref, atol=1e-5, rtol=0)
@@ -140,8 +140,8 @@ def test_port_renderer_on_the_jax_bake(worlds, rays):
     world, jw = worlds
     ro, rd = rays
     carried = convert.world_from_numpy(_fields(jw), "cpu")
-    a = TM.render_samples_binned(carried, ro, rd, prng_key(2), 1, 3)
-    b = TM.render_samples_binned(world, ro, rd, prng_key(2), 1, 3)
+    a = TM.render_samples_binned(carried, ro, rd, prng_key(2, "cpu"), 1, 3)
+    b = TM.render_samples_binned(world, ro, rd, prng_key(2, "cpu"), 1, 3)
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)
 
 
@@ -184,10 +184,18 @@ def test_renderer_names_missing_engines(engine, item):
 
 
 def test_renderer_rejects_jittered_camera():
+    """The jittered camera is ported: ``binned`` routes to ``fused`` under
+    jitter (binning relies on the primary-hit cache) and renders through
+    kernel 4's plain version, one launch per sample."""
     scene = build_reference_scene().to_device("cpu")
-    cfg = RenderConfig(resolution=(8, 8), engine="fused", camera=CameraConfig(jitter=True))
-    with pytest.raises(NotImplementedError, match="A9"):
-        Renderer(scene, cfg, device="cpu")
+    cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=2, max_bounces=2, engine="binned",
+                       camera=CameraConfig(jitter=True))
+    r = Renderer(scene, cfg, device="cpu")
+    assert r.engine == "fused"
+    TM.sample_fused_plain.calls = TM.bounce_plain.calls = 0
+    img = r.render(seed=1)
+    assert TM.sample_fused_plain.calls == 2 and TM.bounce_plain.calls == 0
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all() and img.mean() > 0.0
 
 
 def test_renderer_device_must_hold_the_scene():

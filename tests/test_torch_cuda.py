@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the GPU.
 
 A CUDA kernel has no CPU mode, so these tests skip where no GPU is
-present.  On the GPU machine (which has no JAX, so the JAX conftest is
+present (kernels 1 to 4, the train step on the card against CPU tensors).  On the GPU machine (which has no JAX, so the JAX conftest is
 left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -15,12 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, build_reference_scene, read_bmp
+from pathtracerap_tpu_torch import (
+    CameraConfig, RenderConfig, Renderer, build_cornell_box_scene, build_reference_scene, read_bmp,
+)
 from pathtracerap_tpu_torch.kernels import megakernel as TM
 from pathtracerap_tpu_torch.kernels import trace as TT
 from pathtracerap_tpu_torch.ops.math import normalize, normalize_rsqrt
 from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
-from pathtracerap_tpu_torch.ops.rng import prng_key
+from pathtracerap_tpu_torch.ops.rng import chunk_jitter_uniforms, chunk_uniforms, prng_key
 from pathtracerap_tpu_torch.render.camera import generate_rays
 
 pytestmark = pytest.mark.cuda
@@ -168,3 +170,106 @@ def test_render_on_gpu_matches_golden(dev):
     a, b = down(img, 4), down(down(golden, 10), 4)
     assert float(np.abs(a - b).mean()) < 0.08
     assert float(np.corrcoef(a.ravel(), b.ravel())[0, 1]) > 0.9
+
+
+CORNELL_CAM = CameraConfig(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0),
+                           plane_y=(-40.0, 40.0), plane_z=100.0)  # bench_suite.py:109-112
+
+
+def _fused_case(world, dev, camera, res, jitter: bool):
+    """Kernel 4's inputs at ``res``: ray vectors (jittered per sample 0
+    when ``jitter``), primary rows with their index + 1, 3 samples of
+    5-bounce uniforms."""
+    ro, rd = generate_rays(camera, res, device=dev)
+    n = ro.shape[0]
+    pad = (-n) % TT.RAY_TILE
+    ro = torch.cat([ro, ro.new_zeros(pad, 3)])
+    rd_raw = torch.cat([rd, rd.new_ones(pad, 3)])
+    key = prng_key(6, dev)
+    if jitter:
+        ju = chunk_jitter_uniforms(key, 0, n, ro.shape[0])
+        rd_raw = rd_raw + torch.cat([ju * 0.05, torch.zeros_like(ju[:, :1])], dim=1)
+    rd_n = normalize(rd_raw)
+    hits, idx = TT.trace_pallas(world, ro, rd_n, return_idx=True)
+    prim = TM.primary_pack(hits, torch.where(hits.t < 9999999.0, idx + 1, 0))
+    u = chunk_uniforms(key, range(3), 5, n, ro.shape[0]).reshape(3, ro.shape[0], 20)
+    return TT.ray_vectors(ro, rd_n), prim, u
+
+
+def _check_fused(world, w16, prim, u, parity, use_primary, emit_idx=False):
+    before = TM.sample_fused.launches
+    out = TM.sample_fused(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx)
+    torch.cuda.synchronize()
+    assert TM.sample_fused.launches == before + 1
+    ref = TM.sample_fused_plain(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx)
+    if emit_idx:
+        (out, idx), (ref, ridx) = out, ref
+        assert idx.dtype == torch.int32 and idx.shape == (w16.shape[0], 5)
+        live = (idx != 0) | (ridx != 0)
+        assert ((idx == ridx) & live).sum().item() >= 0.9999 * live.sum().item()
+    assert torch.isfinite(out).all()
+    close = ((out - ref).abs() <= 1e-4).all(dim=1)
+    assert close.float().mean().item() >= 0.999
+
+
+def test_fused_kernel_primary_batched_matches_plain(dev):
+    """The Cornell box's path: primary rows, a batch of 3 samples."""
+    world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
+    w16, prim, u = _fused_case(world, dev, CORNELL_CAM, (64, 64), False)
+    for parity in (True, False):
+        _check_fused(world, w16, prim, u, parity, True)
+
+
+def test_fused_kernel_traced_jittered_matches_plain(dev, world):
+    """The quality render's path: jittered primaries traced in the kernel."""
+    w16, prim, u = _fused_case(world, dev, CameraConfig(), (128, 64), True)
+    _check_fused(world, w16, prim, u[0], False, False)
+
+
+def test_fused_kernel_emit_idx_matches_plain(dev):
+    world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
+    w16, prim, u = _fused_case(world, dev, CORNELL_CAM, (64, 64), False)
+    _check_fused(world, w16, prim, u[0], True, True, emit_idx=True)
+
+
+def test_fused_kernel_gated_sweep_matches_plain(dev):
+    """Above 8 blocks the kernel gates each block on its AABB per tile; the
+    plain version sweeps every block.  Nine spheres in a room: 17 blocks."""
+    from pathtracerap_tpu_torch.scene.build import SceneBuilder, make_box_mesh, make_sphere_mesh
+    from pathtracerap_tpu_torch.scene.types import Material, MaterialType as M
+
+    b = SceneBuilder()
+    sphere = b.add_mesh(make_sphere_mesh(30.0, 16))
+    room = b.add_mesh(make_box_mesh((600.0, 600.0, 600.0)))
+    b.add_instance(room, Material(M.DIFFUSE, (0.8, 0.8, 0.8)))
+    for k in range(9):
+        mat = Material(M.EMISSIVE if k == 4 else (M.METAL, M.DIFFUSE)[k % 2], (0.9, 0.5, 0.2))
+        b.add_instance(sphere, mat, translate=(-160.0 + 80.0 * (k % 5), -60.0 + 100.0 * (k // 5),
+                                               -100.0 - 20.0 * k))
+    world = bake_world_triangles(b.build().to_device(dev))
+    assert world.block_aabb.shape[0] > TM.GATE_BLOCKS
+    cam = CameraConfig(position=(0.0, 0.0, 280.0), plane_x=(-60.0, 60.0), plane_y=(-40.0, 40.0),
+                       plane_z=200.0)
+    w16, prim, u = _fused_case(world, dev, cam, (128, 64), True)
+    _check_fused(world, w16, prim, u[0], False, False)
+
+
+def test_cornell_step_on_gpu_matches_cpu(dev):
+    """The emit_idx train step on the Cornell box at 32x16, 2 spp, 4
+    bounces through kernels 1 and 4 against the same on CPU tensors."""
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = build_cornell_box_scene().to_device(d)
+        target = torch.full((512, 3), 0.25, device=d)
+        TM.sample_fused_plain.calls = 0
+        before = TM.sample_fused.launches
+        out[d.type] = loss_and_grad(extract_params(scene), scene, target, prng_key(1, d),
+                                    CORNELL_CAM, (32, 16), 2, 4, engine="fused")
+        if d.type == "cuda":
+            assert TM.sample_fused_plain.calls == 0 and TM.sample_fused.launches == before + 2
+    (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(l_g.item(), l_c.item(), rtol=1e-5)
+    np.testing.assert_allclose(g_g["mat_color"].cpu().numpy(), g_c["mat_color"].numpy(),
+                               rtol=1e-4, atol=1e-7)

@@ -186,7 +186,7 @@ def _port_streams(world, res, key, ns, parity):
     with torch.no_grad():
         hits0, idx0 = trace_pallas(world, ro_p, rd_p, return_idx=True)
         col0 = torch.where(hits0.t < F_MAX, idx0 + 1, 0)
-        return TF.make_idxs_multi(world, ro_p, rd_p, hits0, col0, prng_key(key), 0, ns, n,
+        return TF.make_idxs_multi(world, ro_p, rd_p, hits0, col0, prng_key(key, "cpu"), 0, ns, n,
                                   BOUNCES, parity, 0)
 
 
@@ -420,7 +420,7 @@ def mat_color_case(scenes):
 def test_render_for_params_image_matches_jax(scenes, mat_color_case):
     scene, _ = scenes
     p = convert.params_from_numpy({"mat_color": np.asarray(mat_color_case["params"]["mat_color"])}, "cpu")
-    img = TG.render_for_params(p, scene, prng_key(1), CAM, RES, SPP, BOUNCES, engine="fused")
+    img = TG.render_for_params(p, scene, prng_key(1, "cpu"), CAM, RES, SPP, BOUNCES, engine="fused")
     assert img.shape == (RES[0] * RES[1], 3) and img.requires_grad
     np.testing.assert_allclose(_np(img), mat_color_case["img"], atol=1e-5, rtol=0)
 
@@ -429,7 +429,7 @@ def test_image_loss_and_mat_color_gradient_match_jax(scenes, mat_color_case):
     scene, _ = scenes
     p = TG.extract_params(scene, ("mat_color",))
     p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
-    loss = TG.image_loss(p, scene, torch.from_numpy(mat_color_case["target"]), prng_key(1), CAM,
+    loss = TG.image_loss(p, scene, torch.from_numpy(mat_color_case["target"]), prng_key(1, "cpu"), CAM,
                          RES, SPP, BOUNCES, engine="fused")
     np.testing.assert_allclose(loss.item(), mat_color_case["loss"], rtol=1e-5)
     (g,) = torch.autograd.grad(loss, [p["mat_color"]])
@@ -447,7 +447,7 @@ def test_train_step_matches_jax(scenes, mat_color_case):
     step = TG.make_train_step(scene, CAM, RES, SPP, BOUNCES, lr=lr, tile_size=8192,
                               engine="fused")
     params = convert.params_from_numpy({"mat_color": np.asarray(mat_color_case["params"]["mat_color"])}, "cpu")
-    loss, new = step(params, torch.from_numpy(mat_color_case["target"]), prng_key(1))
+    loss, new = step(params, torch.from_numpy(mat_color_case["target"]), prng_key(1, "cpu"))
     assert not loss.requires_grad and not new["mat_color"].requires_grad
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
     np.testing.assert_allclose(new["mat_color"].numpy(), np.asarray(jp["mat_color"]), **GRAD_TOL)
@@ -472,13 +472,17 @@ def test_vertex_pos_gradient_matches_jax_in_quality_mode(scenes, worlds):
         p, jscene, target, jax.random.PRNGKey(key), CAM, SMALL, SPP, BOUNCES, engine="fused",
         parity=False)))(params)
     p = convert.params_from_numpy({"vertex_pos": np.asarray(params["vertex_pos"])}, "cpu")
-    loss = TG.image_loss(p, scene, torch.from_numpy(target), prng_key(key), CAM, SMALL, SPP,
+    loss = TG.image_loss(p, scene, torch.from_numpy(target), prng_key(key, "cpu"), CAM, SMALL, SPP,
                          BOUNCES, engine="fused", parity=False)
     (g,) = torch.autograd.grad(loss, [p["vertex_pos"]])
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
     jg = np.asarray(jg["vertex_pos"])
-    assert (jg != 0).sum() > 10
-    np.testing.assert_allclose(g.numpy(), jg, **GRAD_TOL)
+    # the JAX forward replays its padding rays too, and a padding ray whose
+    # color is exactly 0 gives NaN through sqrt's backward; the port replays
+    # the real rays only (ROADMAP queue C)
+    finite = np.isfinite(jg).all(axis=1)
+    assert torch.isfinite(g).all() and (jg[finite] != 0).sum() > 10
+    np.testing.assert_allclose(g.numpy()[finite], jg[finite], **GRAD_TOL)
 
 
 def test_sample_batching_changes_nothing(scenes, monkeypatch):
@@ -489,7 +493,7 @@ def test_sample_batching_changes_nothing(scenes, monkeypatch):
 
     def run():
         p = {"mat_color": scene.mat_color.detach().clone().requires_grad_(True)}
-        img = TG.render_for_params(p, scene, prng_key(5), CAM, SMALL, 3, 3, engine="fused")
+        img = TG.render_for_params(p, scene, prng_key(5, "cpu"), CAM, SMALL, 3, 3, engine="fused")
         (g,) = torch.autograd.grad((img ** 2).sum(), [p["mat_color"]])
         return img.detach(), g
 
@@ -533,7 +537,7 @@ def test_geometry_loss_vertex_gradients_match_jax():
 
 
 # --------------------------------------------------------------------------
-# what is not ported yet
+# the other engines
 # --------------------------------------------------------------------------
 
 
@@ -542,16 +546,21 @@ def test_other_diff_engines_name_their_item(scenes, engine):
     scene, _ = scenes
     p = TG.extract_params(scene)
     with pytest.raises(NotImplementedError, match="A8b"):
-        TG.render_for_params(p, scene, prng_key(0), CAM, SMALL, 1, 2, engine=engine)
+        TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine=engine)
     with pytest.raises(NotImplementedError, match="A8b"):
         TG.make_train_step(scene, CAM, SMALL, 1, 2)(p, torch.zeros(SMALL[0] * SMALL[1], 3),
-                                                   prng_key(0))
+                                                   prng_key(0, "cpu"))
 
 
 def test_single_block_world_names_its_item(worlds):
+    """A one-block world has no binned forward: its index streams come from
+    kernel 4's emit_idx pass (plain version here), one call per sample,
+    with no deferred-trace bounce."""
     world, _ = worlds
     one_block = dataclasses.replace(world, block_aabb=world.block_aabb[:1])
     assert not TF.binned_forward_active(one_block)
     ro, rd = generate_rays(CAM, SMALL)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TF.render_samples_fused_diff(one_block, ro, rd, prng_key(0), 1, 2)
+    TM.sample_fused_plain.calls = TM.bounce_trace_plain.calls = 0
+    out = TF.render_samples_fused_diff(one_block, ro, rd, prng_key(0, "cpu"), 2, 2)
+    assert TM.sample_fused_plain.calls == 2 and TM.bounce_trace_plain.calls == 0
+    assert out.shape == (SMALL[0] * SMALL[1], 3) and torch.isfinite(out).all() and out.max() > 0

@@ -1,5 +1,7 @@
 """The port renders and trains where JAX is absent: the machine with the GPU
-has none."""
+has none.  It imports nothing of the JAX package either, not even its
+jax-free host modules: it keeps its own copies (``tests/test_torch_host.py``
+holds them equal)."""
 
 import os
 import re
@@ -8,32 +10,35 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "pathtracerap_tpu_torch")
+SCRIPTS = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "profile_render.py")]
 
 _RENDER_WITHOUT_JAX = """
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
 import numpy as np
-from pathtracerap_tpu_torch import RenderConfig, Renderer, build_reference_scene
+from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, build_reference_scene
 cfg = RenderConfig(resolution=(16, 16), samples_per_pixel=1, max_bounces=2, engine="fused")
 img = Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu").render().numpy()
 assert img.shape == (16, 16, 3) and np.isfinite(img).all() and 0.0 < img.mean() < 1.0
+cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=1, max_bounces=2, engine="fused",
+                   parity=False, camera=CameraConfig(jitter=True))
+r = Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu")
+assert r.engine == "fused" and np.isfinite(r.render().numpy()).all()
 import torch
-from pathtracerap_tpu_torch import CameraConfig, extract_params, make_train_step
+from pathtracerap_tpu_torch import extract_params, make_train_step
 from pathtracerap_tpu_torch.ops.rng import prng_key
 scene = build_reference_scene().to_device("cpu")
 step = make_train_step(scene, CameraConfig(), (16, 8), 1, 2, engine="fused")
 params = extract_params(scene)
-loss, new = step(params, torch.zeros(16 * 8, 3), prng_key(0))
+loss, new = step(params, torch.zeros(16 * 8, 3), prng_key(0, "cpu"))
 assert torch.isfinite(loss) and not torch.equal(new["mat_color"], params["mat_color"])
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """
 
-# jax-free host modules of the JAX package the port may use
-ALLOWED = {"pathtracerap_tpu.constants", "pathtracerap_tpu.config", "pathtracerap_tpu.io",
-           "pathtracerap_tpu.io.obj", "pathtracerap_tpu.io.bmp", "pathtracerap_tpu.io.ply",
-           "pathtracerap_tpu.native"}
+# modules of the JAX package the port may load: none
+ALLOWED: set = set()
 
 
 def test_port_renders_with_jax_blocked():
@@ -46,10 +51,20 @@ def test_port_renders_with_jax_blocked():
     assert loaded <= ALLOWED, loaded - ALLOWED
 
 
-def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib)\b", re.M)
+def _sources():
     for dirpath, _, files in os.walk(PKG):
         for name in files:
             if name.endswith(".py"):
-                with open(os.path.join(dirpath, name)) as f:
-                    assert not pattern.search(f.read()), os.path.join(dirpath, name)
+                yield os.path.join(dirpath, name)
+    yield from SCRIPTS
+
+
+def test_port_sources_never_import_jax():
+    jax = re.compile(r"^\s*(import|from)\s+(jax|flax|jaxlib)\b", re.M)
+    # the JAX package itself, but not pathtracerap_tpu_torch
+    reference = re.compile(r"^\s*(import|from)\s+pathtracerap_tpu(\.|\s|$)", re.M)
+    for path in _sources():
+        with open(path) as f:
+            text = f.read()
+        assert not jax.search(text), path
+        assert not reference.search(text), path

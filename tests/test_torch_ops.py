@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and fed to both; outputs agree at
 atol 1e-6 (XLA's CPU backend fuses some multiply-adds and rounds
 transcendentals its own way, so last-ulp differences remain)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ from pathtracerap_tpu.ops.intersect import HitRecord as JHit
 from pathtracerap_tpu.render import camera as jcam
 from pathtracerap_tpu.render import shade as jshade
 from pathtracerap_tpu_torch.ops import math as tmath
+from pathtracerap_tpu_torch.ops import rng
 from pathtracerap_tpu_torch.ops import sampling as tsamp
 from pathtracerap_tpu_torch.ops.intersect import HitRecord as THit
 from pathtracerap_tpu_torch.render import camera as tcam
@@ -108,8 +110,16 @@ def test_generate_rays(resolution):
 
 
 def test_generate_rays_jitter_not_ported():
-    with pytest.raises(NotImplementedError, match="A9"):
-        tcam.generate_rays(CameraConfig(jitter=True), (4, 4))
+    """The jittered camera is ported: with a key its rays equal JAX's
+    ``generate_rays(camera, resolution, key)``; without one they are the
+    jitterless rays, as in JAX."""
+    cam = CameraConfig(jitter=True)
+    ro_j, rd_j = jcam.generate_rays(cam, (9, 4), jax.random.PRNGKey(3))
+    ro_t, rd_t = tcam.generate_rays(cam, (9, 4), rng.prng_key(3, "cpu"))
+    _close(ro_t, ro_j, atol=0)
+    _close(rd_t, rd_j, atol=0)
+    _close(tcam.generate_rays(cam, (9, 4))[1], jcam.generate_rays(cam, (9, 4))[1], atol=0)
+    assert not torch.equal(rd_t, tcam.generate_rays(cam, (9, 4))[1])
 
 
 def _shade_inputs(data):
