@@ -20,7 +20,18 @@ and read just after:
   256x256, 64 spp, 4 bounces (BASELINE config 1); the emit_idx train step
   on the Cornell box at 256x256, 8 spp, 4 bounces with its quality
   vertex_pos gradient; and small renders and steps on the card held
-  against CPU tensors.
+  against CPU tensors;
+* large scenes: kernel 5 (the dense trace) against its plain version on
+  a 2,163,864-triangle world, above the fused pack's budget, and on the
+  reference scene baked without a pack; ``Renderer(engine="fused")`` on
+  that world at 512x512, 2 spp, 6 bounces (routed to the per-bounce
+  pallas engine) and ``make_train_step(engine="fused")`` at 256x256, 2 spp,
+  4 bounces (the fallback to the pallas diff engine); the default train
+  step (the pallas diff engine on kernel 1) on the Cornell box at 256x256,
+  8 spp, 4 bounces; the suite's 701-block megascene through
+  ``run_config``, with kernels 1 and 2 against their plain versions at
+  701 blocks; and small per-bounce renders and a default step on the card
+  held against CPU tensors.
 
 Every check raises on failure, so the script exits non-zero before its
 last line, which is
@@ -35,6 +46,7 @@ imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -63,9 +75,24 @@ CORNELL_RES, CORNELL_SPP, CORNELL_BOUNCES = (256, 256), 64, 4  # bench_suite.py:
 CORNELL_CAMERA = dict(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0), plane_y=(-40.0, 40.0),
                       plane_z=100.0)
 CPU_MEAN_ABS, CPU_COMPONENT_ABS, CPU_COMPONENT_SHARE = 1e-4, 1e-5, 0.995
+# the world above the fused pack's budget: build_highpoly_scene(subdiv=736,
+# use_asset=False), rendered at the suite megascene's settings
+BEYOND_SUBDIV, BEYOND_TRIANGLES = 736, 2_163_864
+BEYOND_RES, BEYOND_SPP, BEYOND_BOUNCES = (512, 512), 2, 6  # bench_suite.py megascene
+BEYOND_TRAIN_RES, BEYOND_TRAIN_SPP, BEYOND_TRAIN_BOUNCES = (256, 256), 2, 4
+PLAIN_SLICE = 16384  # rays the plain versions trace where a full sweep would take minutes
+K5_IDX_SHARE, K5_T_REL = 0.9999, 1e-5
+# The suite's room camera (bench_suite._ROOM_CAMERA, z = 380) stands outside
+# the 400-unit room, so its rays stop on the front wall and bounce out of
+# the scene; this camera stands inside it, facing the sphere, so the
+# kernels also meet the sphere's triangles.
+INSIDE_CAMERA = dict(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0), plane_y=(-48.0, 48.0),
+                     plane_z=120.0)
+MEGASCENE_BLOCKS = 701
 # bounds: NVIDIA H100 SXM data sheet (dense FP32 peak, HBM3 bandwidth)
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 PAIR_FLOPS = 47  # per (ray, triangle): 22 FMAs, det, division, t/u/v, accept chain
+GATE_FLOPS = 28  # per (live ray, cluster) of kernel 5: 6 sub, 6 mul, 10 min/max, 6 for the tests
 
 
 def check(ok: bool, what: str) -> None:
@@ -115,8 +142,9 @@ def list_pairs(lists, live, ray_tile: int, unit: int) -> int:
     return int(per_tile.sum().item()) * unit
 
 
-def kernel1_vs_plain(world, dev):
-    """Kernel 1 against its plain version on the primary rays."""
+def kernel1_vs_plain(world, dev, camera=None, resolution=RESOLUTION, plain_rows=None):
+    """Kernel 1 against its plain version on the primary rays (the plain
+    version on the first ``plain_rows`` of them when given)."""
     import torch
 
     from pathtracerap_tpu_torch import CameraConfig
@@ -125,8 +153,8 @@ def kernel1_vs_plain(world, dev):
     )
     from pathtracerap_tpu_torch.render.camera import generate_rays
 
-    ro, rd = generate_rays(CameraConfig(), RESOLUTION, device=dev)
-    n = ro.shape[0]
+    ro, rd = generate_rays(camera or CameraConfig(), resolution, device=dev)
+    n = min(ro.shape[0], plain_rows or ro.shape[0])
     w16, lists = primary_inputs(world, ro, rd)
     nb, tb = world.block_aabb.shape[0], world.tri_block
 
@@ -134,7 +162,7 @@ def kernel1_vs_plain(world, dev):
         return nearest_hit_fused(w16, world.fused_ops, lists, RAY_TILE, tb)
 
     def plain():
-        return nearest_hit_fused_plain(w16, world.fused_ops, nb, tb)
+        return nearest_hit_fused_plain(w16[:plain_rows], world.fused_ops, nb, tb)
 
     t_k, i_k = kern()
     t_p, i_p = plain()
@@ -147,14 +175,15 @@ def kernel1_vs_plain(world, dev):
     max_abs = d.max().item() if d.numel() else 0.0
     rel = (d / t_p[both].abs().clamp_min(1e-30)).max().item() if d.numel() else 0.0
     res = {
-        "rays": n, "hit_share": (i_p >= 0).float().mean().item(), "idx_equal_share": share,
+        "rays": ro.shape[0], "blocks": nb, "plain_rays": n,
+        "hit_share": (i_p >= 0).float().mean().item(), "idx_equal_share": share,
         "t_bit_equal_share": (t_k.view(torch.int32) == t_p.view(torch.int32)).float().mean().item(),
         "max_rel_t": rel, "max_abs_err": max_abs,
     }
     check(share >= K1_IDX_SHARE, f"kernel 1 idx equal share {share} >= {K1_IDX_SHARE}")
     check(rel <= K1_T_REL, f"kernel 1 max rel t diff {rel} <= {K1_T_REL}")
     res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain)
+    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
     live = w16[:, 10] > 0
     res.update(bound(PAIR_FLOPS * list_pairs(lists, live, RAY_TILE, tb),
                      nbytes(w16, world.fused_ops, lists) + res_bytes))
@@ -165,7 +194,7 @@ def kernel1_vs_plain(world, dev):
     return res
 
 
-def bounce1_wavefront(world, dev):
+def bounce1_wavefront(world, dev, camera=None, resolution=RESOLUTION, bounces=MAX_BOUNCES):
     """Bounce 1 of the first 4-sample group of the first slab, sorted, as
     both binned loops (render and diff forward) build it: (pack, uniforms,
     worklists, unit, ray_tile)."""
@@ -180,14 +209,14 @@ def bounce1_wavefront(world, dev):
     from pathtracerap_tpu_torch.ops.rng import prng_key
     from pathtracerap_tpu_torch.render.camera import generate_rays
 
-    ro, rd = generate_rays(CameraConfig(), RESOLUTION, device=dev)
+    ro, rd = generate_rays(camera or CameraConfig(), resolution, device=dev)
     ro, rd = ro[:SLAB], normalize(rd[:SLAB])
     n = ro.shape[0]
     ray_tile = binned_ray_tile(world)
     check(n % ray_tile == 0, "slab fills whole ray tiles")
     hits0 = trace_pallas(world, ro, rd)
     pack, u_flat = first_wavefront(
-        world, ro, rd, hits0, prng_key(0, dev), 0, SAMPLE_BATCH, n, MAX_BOUNCES, True, 0
+        world, ro, rd, hits0, prng_key(0, dev), 0, SAMPLE_BATCH, n, bounces, True, 0
     )
     pix = torch.arange(pack.shape[0], device=dev)
     pack, pix = sort_wavefront(pack, pix, *scene_morton_bounds(world.block_aabb))
@@ -195,42 +224,48 @@ def bounce1_wavefront(world, dev):
     return pack, u_flat[:, 4:8][pix], lists, unit, ray_tile
 
 
-def kernel2_vs_plain(world, dev):
+def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None):
     """Kernel 2 against its plain version on bounce 1 of the first
-    4-sample slab, the sorted wavefront ``render_samples_binned`` builds."""
+    4-sample slab, the sorted wavefront ``render_samples_binned`` builds
+    (the plain version on its first ``plain_rows`` rows when given)."""
     import torch
 
     from pathtracerap_tpu_torch.kernels.megakernel import bounce, bounce_plain
 
-    pack, u_b, lists, unit, ray_tile = bounce1_wavefront(world, dev)
+    pack, u_b, lists, unit, ray_tile = wavefront or bounce1_wavefront(world, dev)
+    m = min(pack.shape[0], plain_rows or pack.shape[0])
 
     def kern():
         return bounce(pack, u_b, lists, unit, world, ray_tile, True)
 
     def plain():
-        return bounce_plain(pack, u_b, world, True)
+        return bounce_plain(pack[:m], u_b[:m], world, True)
 
     out_k, i_k = kern()
     out_p, i_p = plain()
-    live = pack[:, 9] > 0
+    full_k = (out_k, i_k)
+    out_k, i_k, pack_m = out_k[:m], i_k[:m], pack[:m]
+    live = pack_m[:, 9] > 0
+    all_live = pack[:, 9] > 0
     agree = (i_k == i_p) & live
     share = (agree.sum() / live.sum().clamp_min(1)).item()
     d = (out_k - out_p).abs()[agree]
     max_abs = d.max().item() if d.numel() else 0.0
     res = {
-        "rays": pack.shape[0], "live": int(live.sum().item()), "ray_tile": ray_tile, "unit": unit,
+        "rays": pack.shape[0], "plain_rays": m, "live": int(live.sum().item()),
+        "ray_tile": ray_tile, "unit": unit, "worklist_width": lists.shape[1],
         "mean_list_len": (lists >= 0).sum(dim=1).float().mean().item(),
         "hit_agree_share": share, "max_abs_err": max_abs,
         "max_abs_err_per_col": [round(x, 9) for x in (d.amax(dim=0).tolist() if d.numel() else [])],
-        "dead_pass_through": bool(torch.equal(out_k[~live], pack[~live])),
+        "dead_pass_through": bool(torch.equal(full_k[0][~all_live], pack[~all_live])),
     }
     check(share >= K2_HIT_SHARE, f"kernel 2 hit agree share {share} >= {K2_HIT_SHARE}")
     check(max_abs <= K2_STATE_ABS, f"kernel 2 max state diff {max_abs} <= {K2_STATE_ABS}")
     check(res["dead_pass_through"], "kernel 2 leaves dead rays unchanged")
     res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain)
-    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, ray_tile, unit),
-                     nbytes(pack, u_b, lists, world.fused_ops, world.attr_rows, out_k, i_k)))
+    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
+    res.update(bound(PAIR_FLOPS * list_pairs(lists, all_live, ray_tile, unit),
+                     nbytes(pack, u_b, lists, world.fused_ops, world.attr_rows, *full_k)))
     return res
 
 
@@ -283,9 +318,10 @@ def _kernel_fns():
     from pathtracerap_tpu_torch.kernels import trace as TT
 
     wrappers = {"trace_list": TT.nearest_hit_fused, "bounce": MK.bounce,
-                "bounce_trace": MK.bounce_trace, "sample_fused": MK.sample_fused}
+                "bounce_trace": MK.bounce_trace, "sample_fused": MK.sample_fused,
+                "nearest_hit": TT.nearest_hit}
     plains = (TT.nearest_hit_fused_plain, MK.bounce_plain, MK.bounce_trace_plain,
-              MK.sample_fused_plain)
+              MK.sample_fused_plain, TT.nearest_hit_plain)
     return wrappers, plains
 
 
@@ -790,6 +826,388 @@ def fused_vs_cpu(dev):
     return res
 
 
+def _phantoms(world, w, wo, idx):
+    """Whether each ray's slab test fails to reach the cluster box of
+    triangle ``idx``: an accept the cluster gate may skip.  A sliver
+    triangle far from the origin can pass the accept chain for a ray that
+    does not come near it (its Pluecker moments cancel in f32), and only an
+    unculled sweep finds such a phantom."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels.trace import DENSE_RUN, _cluster_margin
+
+    box = world.cluster_aabb[:6, idx.long() // DENSE_RUN].T  # (R, 6)
+    d = w[:, 0:3]
+    d = torch.where(d.abs() < 1e-12, torch.where(d < 0, -1e-12, 1e-12), d)
+    lo = (box[:, 0:3] - wo[:, 0:3]) / d
+    hi = (box[:, 3:6] - wo[:, 0:3]) / d
+    tmin = torch.minimum(lo, hi).amax(dim=1)
+    tmax = torch.maximum(lo, hi).amin(dim=1)
+    margin = _cluster_margin(world.cluster_aabb)
+    return ~((tmax >= -margin) & (tmin <= tmax + margin))
+
+
+def _dense_compare(world, w, wo, plain_rows=None, phantoms_ok=False):
+    """Kernel 5 against its plain version on one wavefront (the plain
+    version on its first ``plain_rows`` rays when given): equal indices on
+    live rays, relative t, the (ray, triangle) pairs the kernel swept and
+    the dense pairs, times and the bound.  The unculled kernel must agree
+    with the plain version; with ``phantoms_ok`` the culled kernel may
+    differ on rays whose plain winner is a phantom (:func:`_phantoms`)."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels.trace import (
+        DENSE_RUN, DENSE_TILE, _dense_runs, nearest_hit, nearest_hit_plain,
+    )
+
+    n = w.shape[0]
+    m = min(n, plain_rows or n)
+    swept = torch.zeros(n // DENSE_TILE, dtype=torch.int32, device=w.device)
+    ops = (world.edge_mat, world.plane_mat, world.cluster_aabb)
+
+    def kern():
+        return nearest_hit(w, wo, *ops, cull=True, n_valid=world.n_valid, swept=swept)
+
+    def plain():
+        return nearest_hit_plain(w[:m], wo[:m], world.edge_mat, world.plane_mat, world.n_valid)
+
+    t_k, i_k = kern()
+    t_p, i_p = plain()
+    t_n, i_n = nearest_hit(w[:m], wo[:m], *ops, cull=False, n_valid=world.n_valid)
+    torch.cuda.synchronize()
+    live = wo[:m, 4] > 0
+    n_share = (((i_n == i_p) & live).sum() / live.sum().clamp_min(1)).item()
+    check(n_share >= K5_IDX_SHARE, f"unculled kernel 5 idx equal share {n_share} >= {K5_IDX_SHARE}")
+    same = (i_k[:m] == i_p) & live
+    share = (same.sum() / live.sum().clamp_min(1)).item()
+    differ = torch.nonzero(live & ~same).flatten()
+    phantom = _phantoms(world, w[differ], wo[differ], i_p[differ])
+    if phantoms_ok:
+        check(bool(phantom.all()), "the culled kernel 5 differs only on phantom accepts")
+    else:
+        check(share >= K5_IDX_SHARE, f"kernel 5 idx equal share {share} >= {K5_IDX_SHARE}")
+    both = same & (i_p >= 0)
+    d = (t_k[:m] - t_p).abs()[both]
+    max_abs = d.max().item() if d.numel() else 0.0
+    rel = (d / t_p[both].abs().clamp_min(1e-30)).max().item() if d.numel() else 0.0
+    check(rel <= K5_T_REL, f"kernel 5 max rel t diff {rel} <= {K5_T_REL}")
+    live_all = wo[:, 4] > 0
+    n_live = int(live_all.sum().item())
+    runs = _dense_runs(world.plane_mat.shape[1], world.n_valid)
+    live_tile = live_all.reshape(-1, DENSE_TILE).sum(dim=1)
+    swept_pairs = int((swept.long() * live_tile).sum().item()) * DENSE_RUN
+    res = {
+        "rays": n, "live": n_live, "plain_rays": m, "triangles": world.n_valid, "runs": runs,
+        "hit_share": (i_p[live] >= 0).float().mean().item(), "idx_equal_share": share,
+        "unculled_idx_equal_share": n_share,
+        "unculled_t_bit_equal_share": (t_n.view(torch.int32) == t_p.view(torch.int32))[live]
+        .float().mean().item(),
+        "differing_rays": differ.numel(), "phantom_rays": int(phantom.sum().item()),
+        "t_bit_equal_share": (t_k[:m].view(torch.int32) == t_p.view(torch.int32))[live]
+        .float().mean().item(),
+        "max_rel_t": rel, "max_abs_err": max_abs,
+        "mean_runs_swept": swept.float().mean().item(),
+        "pairs_swept": swept_pairs, "dense_pairs": n_live * world.n_valid,
+        "gate_tests": n_live * runs,
+    }
+    res["ms"] = cuda_ms(kern)
+    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
+    # the swept pairs' accept chains and every live ray's slab test of every cluster
+    res.update(bound(PAIR_FLOPS * swept_pairs + GATE_FLOPS * n_live * runs,
+                     nbytes(w, wo, *ops, t_k, i_k)))
+    return res
+
+
+def kernel5_vs_plain(big_scene, dev):
+    """Kernel 5 at full size on the 2,163,864-triangle world (no fused
+    pack): the 512x512 primaries and the bounce-1 wavefront the per-bounce
+    engine traces next (unsorted, dead rays in place) of the suite's room
+    camera and of INSIDE_CAMERA, each held against the plain version on
+    its first PLAIN_SLICE rays; and the reference scene baked without a
+    pack at 1000x800 against a full plain sweep.  Returns (results, the
+    big world)."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_reference_scene
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+    from pathtracerap_tpu_torch.kernels.trace import dense_inputs, trace_pallas
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+    from pathtracerap_tpu_torch.ops.rng import chunk_uniforms, prng_key
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+    from pathtracerap_tpu_torch.render.shade import RayState, shade
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    world = bake_world_triangles(big_scene)
+    torch.cuda.synchronize()
+    res = {"bake_s": time.perf_counter() - t0, "triangles": world.n_valid,
+           "padded": world.plane_mat.shape[1], "has_pack": world.fused_ops is not None}
+    check(world.fused_ops is None and world.n_valid == BEYOND_TRIANGLES,
+          f"the {BEYOND_TRIANGLES}-triangle world has no fused pack")
+    for tag, cam in (("", _ROOM_CAMERA), ("inside_", CameraConfig(**INSIDE_CAMERA))):
+        ro, rd = generate_rays(cam, BEYOND_RES, device=dev)
+        n = ro.shape[0]
+        # from inside the room the rays meet the sphere's pole slivers
+        inside = bool(tag)
+        res[tag + "primary"] = _dense_compare(world, *dense_inputs(ro, rd), plain_rows=PLAIN_SLICE,
+                                              phantoms_ok=inside)
+        hits = trace_pallas(world, ro, rd)
+        u = chunk_uniforms(prng_key(0, dev), 0, BEYOND_BOUNCES, n, n)
+        st = shade(RayState.primary(ro, rd, BEYOND_BOUNCES), hits, u[:, 0:4])
+        res[tag + "bounce1"] = _dense_compare(
+            world, *dense_inputs(st.orig, st.dir, st.remaining > 0), plain_rows=PLAIN_SLICE,
+            phantoms_ok=inside,
+        )
+    ref = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
+    ro, rd = generate_rays(CameraConfig(), RESOLUTION, device=dev)
+    res["reference_primary"] = _dense_compare(ref, *dense_inputs(ro, rd))
+    return res, world
+
+
+def beyond_pack_render(big_scene, dev):
+    """Renderer(engine="fused") on the 2,163,864-triangle world at the
+    megascene's settings, 512x512 x 2 spp x 6 bounces: no fused pack, so
+    the engine resolves to the per-bounce pallas engine on kernel 5."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+
+    cfg = RenderConfig(resolution=BEYOND_RES, samples_per_pixel=BEYOND_SPP,
+                       max_bounces=BEYOND_BOUNCES, engine="fused", camera=_ROOM_CAMERA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = Renderer(big_scene, cfg, device=dev)
+    torch.cuda.synchronize()
+    res = {"engine": r.engine, "bake_s": time.perf_counter() - t0}
+    check(r.engine == "pallas", f"beyond-pack render routed to {r.engine!r}, expected 'pallas'")
+    t0 = time.perf_counter()
+    r.render()  # warm-up
+    torch.cuda.synchronize()
+    res["first_render_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    w, h = BEYOND_RES
+    res.update({"resolution": BEYOND_RES, "spp": BEYOND_SPP, "bounces": BEYOND_BOUNCES,
+                "render_s": dt, "mrays_per_s": w * h * BEYOND_SPP * BEYOND_BOUNCES / dt / 1e6,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    res.update(_counts())
+    check(res["nearest_hit_launches"] > 0, "kernel 5 launched on the beyond-pack render")
+    check(all(res[f"{k}_launches"] == 0 for k in ("trace_list", "bounce", "bounce_trace",
+                                                   "sample_fused")),
+          "kernels 1 to 4 not launched on the beyond-pack render")
+    check(res["plain_calls"] == 0, "no plain version called on the beyond-pack render")
+    img = img.cpu().numpy()
+    check(img.shape == (h, w, 3) and bool(np.isfinite(img).all()), "beyond-pack image finite")
+    res["mean"] = float(img.mean())
+    check(0.01 < res["mean"] < 1.0, f"beyond-pack image mean {res['mean']} in (0.01, 1.0)")
+    # the same render from inside the room, where the rays meet the sphere
+    r = Renderer(big_scene, dataclasses.replace(cfg, camera=CameraConfig(**INSIDE_CAMERA)),
+                 device=dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    img = img.cpu().numpy()
+    inside = {"render_s": dt, "mrays_per_s": w * h * BEYOND_SPP * BEYOND_BOUNCES / dt / 1e6,
+              "mean": float(img.mean())}
+    inside.update(_counts())
+    check(inside["nearest_hit_launches"] > 0 and inside["plain_calls"] == 0,
+          "kernel 5 on the inside render")
+    check(bool(np.isfinite(img).all()) and 0.01 < inside["mean"] < 1.0,
+          f"inside image finite, mean {inside['mean']} in (0.01, 1.0)")
+    res["inside_camera"] = inside
+    return res
+
+
+def beyond_pack_train_step(big_scene, dev):
+    """make_train_step(engine="fused") with mat_color on the same world at
+    256x256 x 2 spp x 4 bounces: the fused engine falls back to the
+    per-bounce pallas diff engine, on kernel 5."""
+    import torch
+
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+    from pathtracerap_tpu_torch.diff import extract_params, make_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+
+    res_xy = BEYOND_TRAIN_RES
+    n = res_xy[0] * res_xy[1]
+    lr = 0.05
+    step = make_train_step(big_scene, _ROOM_CAMERA, res_xy, BEYOND_TRAIN_SPP, BEYOND_TRAIN_BOUNCES,
+                           lr=lr, engine="fused")
+    params = extract_params(big_scene, ("mat_color",))
+    target = torch.zeros((n, 3), device=dev)
+    key = prng_key(0, dev)
+    t0 = time.perf_counter()
+    step(params, target, key)  # warm-up
+    torch.cuda.synchronize()
+    res = {"warmup_step_s": time.perf_counter() - t0}
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, new = step(params, target, key)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res.update({"resolution": res_xy, "spp": BEYOND_TRAIN_SPP, "bounces": BEYOND_TRAIN_BOUNCES,
+                "step_s": dt,
+                "fwd_bwd_mrays_per_s": n * BEYOND_TRAIN_SPP * BEYOND_TRAIN_BOUNCES / dt / 1e6,
+                "loss": loss.item(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    res.update(_counts())
+    res.update(_grad_stats((params["mat_color"] - new["mat_color"]) / lr))
+    check(res["nearest_hit_launches"] > 0, "kernel 5 launched in the beyond-pack step")
+    check(all(res[f"{k}_launches"] == 0 for k in ("trace_list", "bounce", "bounce_trace",
+                                                   "sample_fused")),
+          "kernels 1 to 4 not launched in the beyond-pack step")
+    check(res["plain_calls"] == 0, "no plain version called in the beyond-pack step")
+    check(math.isfinite(res["loss"]) and res["loss"] > 0, f"loss {res['loss']} finite and > 0")
+    check(res["grad_finite"] and res["grad_nonzero"] > 0, "mat_color gradient finite and nonzero")
+    return res
+
+
+def pallas_train_step(dev):
+    """make_train_step with its defaults (the per-bounce pallas diff
+    engine, 2048-ray RNG tiles, lr 0.05) on the Cornell box at 256x256 x 8
+    spp x 4 bounces, mat_color: kernel 1 traces every bounce."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
+    from pathtracerap_tpu_torch.diff import extract_params, make_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+
+    scene = build_cornell_box_scene().to_device(dev)
+    n = CORNELL_RES[0] * CORNELL_RES[1]
+    lr = 0.05
+    step = make_train_step(scene, CameraConfig(**CORNELL_CAMERA), CORNELL_RES, TRAIN_SPP,
+                           CORNELL_BOUNCES)
+    params = extract_params(scene, ("mat_color",))
+    target = torch.zeros((n, 3), device=dev)
+    key = prng_key(0, dev)
+    step(params, target, key)  # warm-up
+    walls = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        loss, new = step(params, target, key)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    res = {"resolution": CORNELL_RES, "spp": TRAIN_SPP, "bounces": CORNELL_BOUNCES,
+           "step_s": walls,
+           "fwd_bwd_mrays_per_s": n * TRAIN_SPP * CORNELL_BOUNCES / min(walls) / 1e6,
+           "loss": loss.item(), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res.update(_counts())
+    res.update(_grad_stats((params["mat_color"] - new["mat_color"]) / lr))
+    # one primary trace, then bounces 1 .. 3 of every sample
+    check(res["trace_list_launches"] == 1 + TRAIN_SPP * (CORNELL_BOUNCES - 1),
+          "kernel 1 traces every bounce of the default step")
+    check(res["sample_fused_launches"] == 0 and res["nearest_hit_launches"] == 0,
+          "no whole-sample or dense kernel in the default step")
+    check(res["plain_calls"] == 0, "no plain version called in the default step")
+    check(math.isfinite(res["loss"]) and res["loss"] > 0, f"loss {res['loss']} finite and > 0")
+    check(res["grad_finite"] and res["grad_nonzero"] > 0, "mat_color gradient finite and nonzero")
+    return res
+
+
+def megascene_render(dev):
+    """The suite's megascene (358,824 triangles, 701 blocks of the fused
+    pack, above the TPU kernels' streaming threshold of 313) through
+    ``run_config("megascene")``: the binned engine, kernels 1 and 2 on
+    701-entry block worklists.  Then both kernels against their plain
+    versions on its primaries and its first sorted bounce wavefront (the
+    plain versions on the first PLAIN_SLICE rays)."""
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, run_config, suite_configs
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+
+    _zero_counts()
+    res = run_config("megascene", device=dev)
+    res.update(_counts())
+    res["renders"] = 3  # run_config: one warm-up and two timed renders
+    check(res["engine"] == "binned", f"megascene routed to {res['engine']!r}, expected 'binned'")
+    check(res["trace_list_launches"] > 0 and res["bounce_launches"] > 0,
+          "kernels 1 and 2 launched on the megascene")
+    check(res["plain_calls"] == 0, "no plain version called on the megascene")
+    check(0.01 < res["image_mean"] < 1.0, f"megascene image mean {res['image_mean']} in (0.01, 1.0)")
+    spec = suite_configs()["megascene"]
+    world = bake_world_triangles(spec["scene"]().to_device(dev))
+    res["blocks"] = world.block_aabb.shape[0]
+    check(res["blocks"] == MEGASCENE_BLOCKS, f"megascene has {res['blocks']} blocks")
+    res_xy, bounces = spec["cfg"]["resolution"], spec["cfg"]["max_bounces"]
+    res["kernel1"] = kernel1_vs_plain(world, dev, _ROOM_CAMERA, res_xy, plain_rows=PLAIN_SLICE)
+    wavefront = bounce1_wavefront(world, dev, _ROOM_CAMERA, res_xy, bounces)
+    check(wavefront[2].shape[1] == MEGASCENE_BLOCKS, "bounce worklists are 701 blocks wide")
+    res["kernel2"] = kernel2_vs_plain(world, dev, wavefront, plain_rows=PLAIN_SLICE)
+    # from inside the room the sorted bounce rays list many of the 701 blocks
+    inside = bounce1_wavefront(world, dev, CameraConfig(**INSIDE_CAMERA), res_xy, bounces)
+    res["kernel2_inside"] = kernel2_vs_plain(world, dev, inside, plain_rows=PLAIN_SLICE)
+    return res
+
+
+def pallas_vs_cpu(dev):
+    """The per-bounce pallas engine on the card against the same on CPU
+    tensors: a 32x16 x 2 spp x 5 bounce render of the reference scene with
+    its fused pack (kernel 1) and baked without one (kernel 5), and a 32x16
+    default-engine step on the Cornell box (loss and mat_color gradient)."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene, build_reference_scene
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.render.wavefront import render_accumulate
+
+    res = {}
+    for name, tile in (("render_pack", 512), ("render_nopack", None)):
+        imgs = {}
+        for d in (dev, torch.device("cpu")):
+            scene = build_reference_scene().to_device(d)
+            world = bake_world_triangles(scene, fused_tile=tile)
+            _zero_counts()
+            imgs[d.type] = render_accumulate(scene, prng_key(3, d), CameraConfig(), SMALL_RES,
+                                             SMALL_SPP, MAX_BOUNCES, engine="pallas", world=world)
+            if d.type == "cuda":
+                counts = _counts()
+        diff = (imgs["cuda"].cpu() - imgs["cpu"]).abs() / SMALL_SPP
+        res[name] = {"resolution": SMALL_RES, "spp": SMALL_SPP, "bounces": MAX_BOUNCES,
+                     "mean_abs": diff.mean().item(), "max_abs": diff.max().item(),
+                     "share_within": (diff <= CPU_COMPONENT_ABS).float().mean().item(), **counts}
+        kernel = "trace_list" if tile else "nearest_hit"
+        check(counts[f"{kernel}_launches"] > 0 and counts["plain_calls"] == 0,
+              f"{kernel} on the card")
+        check(res[name]["mean_abs"] <= CPU_MEAN_ABS, f"{name}: card vs CPU mean|diff| <= {CPU_MEAN_ABS}")
+        check(res[name]["share_within"] >= CPU_COMPONENT_SHARE,
+              f"{name}: {CPU_COMPONENT_SHARE} of components within {CPU_COMPONENT_ABS}")
+
+    cam = CameraConfig(**CORNELL_CAMERA)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = build_cornell_box_scene().to_device(d)
+        target = torch.full((SMALL_RES[0] * SMALL_RES[1], 3), 0.25, device=d)
+        _zero_counts()
+        out[d.type] = loss_and_grad(extract_params(scene), scene, target, prng_key(1, d), cam,
+                                    SMALL_RES, SMALL_SPP, SMALL_BOUNCES)
+        if d.type == "cuda":
+            counts = _counts()
+    (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
+    g_g, g_c = g_g["mat_color"].cpu(), g_c["mat_color"]
+    res["cornell_step"] = {"loss_gpu": l_g.item(), "loss_cpu": l_c.item(),
+                           "loss_rel": abs(l_g.item() - l_c.item()) / abs(l_c.item()),
+                           "grad_max_abs": (g_g - g_c).abs().max().item(),
+                           "grad_abs_max": g_c.abs().max().item(), **counts}
+    check(counts["trace_list_launches"] > 0 and counts["plain_calls"] == 0, "kernel 1 on the card")
+    check(res["cornell_step"]["loss_rel"] <= LOSS_RTOL, f"Cornell loss vs CPU within {LOSS_RTOL}")
+    check(bool(torch.allclose(g_g, g_c, rtol=GRAD_RTOL, atol=1e-7)),
+          f"Cornell gradient vs CPU within rtol {GRAD_RTOL}")
+    return res
+
+
 def phase(name: str, res) -> None:
     print(f"{name}: {json.dumps(res)}", flush=True)
 
@@ -848,6 +1266,26 @@ def main() -> int:
     phase("cornell_render", cornell_render(dev))
     phase("cornell_train_step", cornell_train_step(dev))
     phase("fused_vs_cpu", fused_vs_cpu(dev))
+
+    from pathtracerap_tpu_torch.bench_suite import build_highpoly_scene
+
+    t0 = time.perf_counter()
+    big = build_highpoly_scene(subdiv=BEYOND_SUBDIV, use_asset=False).to_device(dev)
+    host_s = time.perf_counter() - t0
+    k5, big_world = kernel5_vs_plain(big, dev)
+    k5["scene_build_s"] = host_s
+    phase("kernel5_vs_plain", k5)
+    del big_world
+    torch.cuda.empty_cache()
+    bp = beyond_pack_render(big, dev)
+    phase("beyond_pack_render", bp)
+    phase("beyond_pack_train_step", beyond_pack_train_step(big, dev))
+    del big
+    torch.cuda.empty_cache()
+    phase("pallas_train_step", pallas_train_step(dev))
+    mega = megascene_render(dev)
+    phase("megascene_render", mega)
+    phase("pallas_vs_cpu", pallas_vs_cpu(dev))
     check("jax" not in sys.modules, "jax was never imported")
 
     def entry(name, source, replaces, launches, k, max_abs_err=None):
@@ -868,6 +1306,14 @@ def main() -> int:
               ts["bounce_trace_launches"], k3),
         entry("megakernel", "megakernel.cu", "megakernel.py:1206", qr["sample_fused_launches"],
               k4q, max(m["max_abs_err"] for m in k4.values())),
+        # the beyond-pack render's bounces are its launches: the bounce-1 wavefront's numbers
+        entry("nearest_hit", "nearest_hit.cu", "trace.py:54", bp["nearest_hit_launches"],
+              k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict))),
+        # the TPU kernels' streamed modes, at the megascene's 701 blocks
+        entry("trace_list_701_blocks", "trace_list.cu", "trace.py:222",
+              mega["trace_list_launches"], mega["kernel1"]),
+        entry("bounce_701_blocks", "bounce.cu", "megakernel.py:954", mega["bounce_launches"],
+              mega["kernel2"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

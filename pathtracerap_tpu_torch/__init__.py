@@ -14,11 +14,15 @@ It covers, through ``Renderer(scene, config, device).render()``:
 * the whole-sample fused engine (kernel 4): single-block scenes such as
   :func:`build_cornell_box_scene` (primaries through kernel 1), and the
   jittered quality camera, ``CameraConfig(jitter=True)``, on any scene;
+* the per-bounce ``pallas`` engine (kernel 1's worklists, or kernel 5's
+  dense sweep for worlds above the fused pack's budget, where ``fused``
+  routes too) and ``mxu`` (the brute-force tracer);
 
-and, through ``diff.make_train_step(..., engine="fused")``, the
-differentiable train step: the binned deferred-trace forward (kernels 1
-and 3) on multi-block scenes, kernel 4's ``emit_idx`` forward on
-single-block ones.
+and, through ``diff.make_train_step``, the differentiable train step: by
+default the per-bounce ``pallas`` diff engine; with ``engine="fused"`` the
+binned deferred-trace forward (kernels 1 and 3) on multi-block scenes,
+kernel 4's ``emit_idx`` forward on single-block ones.  ``bench_suite``
+holds the benchmark suite's scenes and configs.
 """
 
 __version__ = "0.1.0"

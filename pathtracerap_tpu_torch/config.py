@@ -41,8 +41,8 @@ class RenderConfig:
     max_bounces: int = constants.MAX_BOUNCES
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
 
-    # traversal engine: "fused" and "binned" are ported; "parity", "mxu"
-    # and "pallas" raise, naming their ROADMAP item
+    # traversal engine: "fused", "binned", "pallas" and "mxu" are ported;
+    # "parity" raises, naming its ROADMAP item
     engine: str = "mxu"
 
     # True reproduces the reference's behavioural quirks (reflectRay,

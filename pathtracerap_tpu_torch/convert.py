@@ -2,8 +2,9 @@
 
 The JAX package's ``SceneDevice`` and ``WorldTriangles`` arrive here as a
 dict of their fields, each one ``np.asarray``'d (the static ints as they
-are).  Fields the port has no use for (the uniform grids, the dense
-kernel's packs) are dropped.  With these, the JAX bake can be fed to the
+are).  Fields the port has no use for (the uniform grids) are dropped;
+the dense tracer's operands (``edge_mat``, ``plane_mat``,
+``cluster_aabb``) come across as they are.  With these, the JAX bake can be fed to the
 port's renderer so the two renderers are compared alone.
 :func:`params_from_numpy` does the same for a JAX ``extract_params`` dict.
 """

@@ -1,5 +1,5 @@
 // Shared device code of the traversal kernels (trace_list.cu, bounce.cu,
-// bounce_trace.cu, megakernel.cu).
+// bounce_trace.cu, megakernel.cu, nearest_hit.cu).
 //
 // The fused operand pack `ops` is (16, 4*T) row-major: per block of TB
 // triangles its columns are [s_ab | s_bc | s_ca | plane], so triangle g's

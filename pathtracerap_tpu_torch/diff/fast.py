@@ -1,5 +1,10 @@
-"""Differentiable render at the binned engine's forward speed (port of
+"""Differentiable render at the kernels' forward speed (port of
 ``pathtracerap_tpu/diff/fast.py``).
+
+The per-bounce ``pallas`` diff engine traces each bounce through
+:func:`trace_pallas_diff`: the kernel picks the triangle, and
+:func:`hit_from_index` recomputes the hit differentiably.  The rest of
+this module serves ``engine="fused"``.
 
 The discrete part of traversal, which triangle each bounce hits, comes
 from the kernels under ``torch.no_grad()`` on a detached world: the
@@ -145,6 +150,20 @@ def replay_color_only(world: WorldTriangles, idxs: torch.Tensor, max_bounces: in
             kill, torch.zeros_like(remaining), torch.where(alive, remaining - 1, remaining)
         )
     return torch.sqrt(torch.clamp(color, min=0.0))
+
+
+def trace_pallas_diff(world: WorldTriangles, ro: torch.Tensor, rd: torch.Tensor,
+                      alive=None) -> HitRecord:
+    """Differentiable tracer at the kernels' forward speed: the same result
+    contract as :func:`..kernels.trace.trace_pallas`.  The kernel (kernel
+    1's worklists, or kernel 5's dense sweep on a world without a pack)
+    picks each ray's triangle on detached inputs; :func:`hit_from_index`
+    recomputes the hit there, so gradients reach the world through it."""
+    rd_n = normalize(rd)
+    with torch.no_grad():
+        rec, idx = trace_pallas(world.detached(), ro.detach(), rd_n.detach(), alive=alive,
+                                return_idx=True)
+    return hit_from_index(world, ro, rd_n, idx.long(), rec.t < F_MAX)
 
 
 def binned_forward_active(world: WorldTriangles) -> bool:

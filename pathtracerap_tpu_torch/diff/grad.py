@@ -10,10 +10,13 @@ image is the mean of per-sample ``sqrt`` tone-mapped throughputs.
 
 Parameters are plain dicts of tensors (``extract_params``); a train step
 is :func:`loss_and_grad` (``torch.autograd.grad``) and the update
-``p - lr * g``.  Only the ``engine="fused"`` path is ported (the binned
-deferred-trace forward of :mod:`.fast`, or on single-block scenes its
-fused ``emit_idx`` forward); the per-bounce ``pallas`` and ``mxu`` diff
-engines raise.
+``p - lr * g``.  Three diff engines: ``pallas`` (the default), the
+per-bounce engine of :mod:`..render.wavefront` tracing through
+:func:`.fast.trace_pallas_diff`; ``mxu``, the same engine differentiated
+straight through :func:`..ops.plucker.trace_mxu`; and ``fused``, the
+binned deferred-trace forward of :mod:`.fast` (or on single-block scenes
+its fused ``emit_idx`` forward), which falls back to ``pallas`` on a world
+without a fused pack.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from ..kernels.megakernel import BINNED_SLAB_TILES, FUSED_SLAB_TILES
 from ..ops.plucker import bake_world_triangles, trace_mxu
 from ..ops.rng import RNG_TILE
 from ..render.camera import generate_rays
+from ..render.wavefront import _make_tracer, _render_tile
 from ..scene.types import SceneDevice
-from .fast import binned_forward_active, render_samples_fused_diff
+from .fast import binned_forward_active, render_samples_fused_diff, trace_pallas_diff
 
 DEFAULT_PARAMS: Tuple[str, ...] = ("mat_color",)
 DEFAULT_DIFF_ENGINE = "pallas"
@@ -59,18 +63,27 @@ def render_for_params(
 ) -> torch.Tensor:
     """(N, 3) image (mean contribution) as a differentiable function of
     ``params``.  ``ro``/``rd`` may be passed for pre-split ray slices;
-    ``tile_base`` is then their first 8192-ray RNG tile.  ``parity=False``
-    enables the quality-mode cosine throughput factor, so color carries
-    vertex gradients.  ``tile_size`` serves the per-bounce engines only."""
-    if engine != "fused":
-        raise NotImplementedError(
-            f"diff engine {engine!r}: the per-bounce pallas and mxu diff engines are not "
-            "ported yet (ROADMAP A8b)"
-        )
+    ``tile_base`` is then their first RNG tile: of 8192 rays for
+    ``fused``, of ``tile_size`` rays for the per-bounce ``pallas`` and
+    ``mxu``.  ``parity=False`` enables the quality-mode cosine throughput
+    factor, so color carries vertex gradients."""
     s = apply_params(scene, params)
     world = bake_world_triangles(s)
     if ro is None:
         ro, rd = generate_rays(camera, resolution, device=s.device)
+    if engine == "fused" and world.fused_ops is None:
+        # no fused pack (above the bake's budget): the per-bounce pallas
+        # engine, as render/wavefront.effective_engine routes a render
+        engine = "pallas"
+    if engine != "fused":
+        if engine == "pallas":
+            def tracer(ro_, rd_, alive=None):
+                return trace_pallas_diff(world, ro_, rd_, alive=alive)
+        else:
+            tracer = _make_tracer(s, engine, world=world)
+        acc = _render_tile(tracer, ro, rd, tile_base, key, n_samples, max_bounces, parity,
+                           tile_size=tile_size)
+        return acc / n_samples
     # the binned forward's slabs, or the fused emit_idx forward's 64 tiles
     tiles = BINNED_SLAB_TILES if binned_forward_active(world) else FUSED_SLAB_TILES
     slab = tiles * RNG_TILE
@@ -152,11 +165,16 @@ def geometry_loss(
 
 def loss_and_grad(params: Dict, *args, **kwargs):
     """``jax.value_and_grad(image_loss)``: (loss, grads), both detached;
-    ``args`` and ``kwargs`` are :func:`image_loss`'s after ``params``."""
+    ``args`` and ``kwargs`` are :func:`image_loss`'s after ``params``.  A
+    parameter the loss does not reach (vertex positions under the parity
+    per-bounce engines, whose color is a pure albedo product) gets a zero
+    gradient, as in JAX."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss = image_loss(leaves, *args, **kwargs)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    return loss.detach(), dict(zip(leaves, grads))
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {
+        k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(leaves.items(), grads)
+    }
 
 
 def make_train_step(

@@ -51,6 +51,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, i, p, p, p]
     lib.ptt_sample_fused.restype = i
     lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, p]
+    lib.ptt_nearest_hit.restype = i
+    lib.ptt_nearest_hit.argtypes = [p, p, p, p, i, p, p, i, i, i, p, p, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

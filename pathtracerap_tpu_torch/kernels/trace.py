@@ -1,16 +1,25 @@
-"""Worklist nearest-hit trace (port of ``pathtracerap_tpu/pallas/trace.py``).
+"""Nearest-hit traces (port of ``pathtracerap_tpu/pallas/trace.py``).
 
-The per-ray-tile block worklists are built in plain torch
-(:func:`_tile_block_lists`), sorted front to back and padded with -1; the
-nearest-hit sweep over them is kernel 1, ``csrc/trace_list.cu``, which
-replaces the TPU kernel ``pallas/trace.py::_fused_list_kernel``.
+**Worklist trace.** The per-ray-tile block worklists are built in plain
+torch (:func:`_tile_block_lists`), sorted front to back and padded with
+-1; the nearest-hit sweep over them is kernel 1, ``csrc/trace_list.cu``,
+which replaces the TPU kernel ``pallas/trace.py::_fused_list_kernel``.
+It reads the pack from device memory at any block count, so it also
+stands in for that kernel's streamed mode above 313 blocks.
 
-:func:`nearest_hit_fused` is the kernel's wrapper: on a CUDA tensor it
-launches the kernel (and counts the launch), on a CPU tensor it runs the
-plain version :func:`nearest_hit_fused_plain`, which sweeps every real
-block instead of the worklist.  The worklist contract (never drop a block
-a live ray can hit; exact-t ties to the lowest baked index) makes the two
-return the same (t, idx).
+**Dense trace.** A world without a fused pack (above the bake's pack
+budget, or traced with ``cull=False``) is swept whole by kernel 5,
+``csrc/nearest_hit.cu``, which replaces ``_nearest_hit_kernel``: every
+ray tile walks every real 128-triangle cluster in index order and skips
+the clusters no live ray's slab test can reach with a better t.
+
+:func:`nearest_hit_fused` and :func:`nearest_hit` are the kernels'
+wrappers: on a CUDA tensor they launch the kernel (and count the launch),
+on a CPU tensor they run the plain versions
+:func:`nearest_hit_fused_plain` and :func:`nearest_hit_plain`, which sweep
+every real triangle.  The culling contract (never skip a block a live ray
+can hit with a better t; exact-t ties to the lowest baked index) makes
+kernel and plain version return the same (t, idx).
 """
 
 from __future__ import annotations
@@ -33,6 +42,14 @@ RAY_TILE = 512
 # (N, nb, 3) temporaries of gigabytes; a per-tile frustum test is used.
 FRUSTUM_LIST_THRESHOLD = 48
 PLAIN_CHUNK = 8192  # rays per chunk of the plain versions' products
+# Kernel 1's plain version sweeps the pack in chunks of this many blocks,
+# and of as many rays as keep a (rays x columns) temporary within
+# PLAIN_ELEMS values.
+PLAIN_BLOCK_CHUNK = 64
+PLAIN_ELEMS = 1 << 24
+DENSE_TILE = 256  # rays per thread block of kernel 5
+DENSE_RUN = 128  # triangles per run of kernel 5 == the bake's cluster width
+DENSE_TRI_CHUNK = 8192  # triangles per chunk of kernel 5's plain version
 
 
 def _slab_margin(block_aabb: torch.Tensor) -> torch.Tensor:
@@ -155,14 +172,26 @@ def accept_nearest(s: torch.Tensor, tri_block: int):
 
 def nearest_hit_fused_plain(w: torch.Tensor, fused_ops: torch.Tensor, n_blocks: int, tri_block: int):
     """Plain version of kernel 1: every real block, every ray.  Returns
-    (t (N,) f32, idx (N,) int32)."""
+    (t (N,) f32, idx (N,) int32).  The blocks are swept in chunks in index
+    order, a chunk's best replacing the running one only on a strictly
+    smaller t: the result of one sweep over all of them."""
     nearest_hit_fused_plain.calls += 1
-    ops = fused_ops[:, : n_blocks * 4 * tri_block]
+    cols = 4 * tri_block
+    chunk_cols = min(n_blocks, PLAIN_BLOCK_CHUNK) * cols
+    rows = max(1, min(PLAIN_CHUNK, PLAIN_ELEMS // chunk_cols))
     ts, idxs = [], []
-    for s0 in range(0, w.shape[0], PLAIN_CHUNK):
-        t, idx = accept_nearest(w[s0:s0 + PLAIN_CHUNK] @ ops, tri_block)
-        ts.append(t)
-        idxs.append(idx.to(torch.int32))
+    for s0 in range(0, w.shape[0], rows):
+        wr = w[s0:s0 + rows]
+        best = torch.full((wr.shape[0],), F_MAX, device=w.device)
+        best_idx = torch.full((wr.shape[0],), -1, dtype=torch.int64, device=w.device)
+        for b0 in range(0, n_blocks, PLAIN_BLOCK_CHUNK):
+            b1 = min(b0 + PLAIN_BLOCK_CHUNK, n_blocks)
+            t, idx = accept_nearest(wr @ fused_ops[:, b0 * cols:b1 * cols], tri_block)
+            better = t < best
+            best_idx = torch.where(better, idx + b0 * tri_block, best_idx)
+            best = torch.where(better, t, best)
+        ts.append(best)
+        idxs.append(best_idx.to(torch.int32))
     return torch.cat(ts), torch.cat(idxs)
 
 
@@ -228,6 +257,126 @@ def nearest_hit_fused(
 nearest_hit_fused.launches = 0
 
 
+def _cluster_margin(cluster_aabb: torch.Tensor) -> torch.Tensor:
+    """The dense kernel's cull margin (0-d tensor): ``EPS + 1e-5`` times
+    the largest finite coordinate of the cluster table, as
+    ``_nearest_hit_kernel`` computes it (``pallas/trace.py:106-108``)."""
+    a = cluster_aabb.abs()
+    return EPS + 1e-5 * torch.where(a < F_MAX, a, 0.0).amax()
+
+
+def _dense_runs(t_tris: int, n_valid: int) -> int:
+    """The 128-triangle runs the dense sweep visits: those that hold real
+    triangles (``n_valid`` of them come first), or all when unknown."""
+    if t_tris % DENSE_RUN:
+        raise ValueError(f"{t_tris} triangles are not a multiple of {DENSE_RUN}")
+    runs = t_tris // DENSE_RUN
+    return min(runs, -(-n_valid // DENSE_RUN)) if n_valid else runs
+
+
+def nearest_hit_plain(w, wo, edge_mat, plane_mat, n_valid: int = 0):
+    """Plain version of kernel 5: every ray against every real triangle,
+    with ``_nearest_hit_kernel``'s arithmetic (three side products and
+    ``num = o . n - d``, an explicit ``det == 0`` mask, ``t = -num / det``,
+    the five epsilon tests).  Rays and triangles go in chunks; a chunk's
+    first minimum replaces the running best only on a strictly smaller t,
+    so exact ties go to the lowest index.  Returns (t (N,) f32, idx (N,)
+    int32, -1 on a miss)."""
+    nearest_hit_plain.calls += 1
+    n_tris = _dense_runs(plane_mat.shape[1], n_valid) * DENSE_RUN
+    ts, idxs = [], []
+    for s0 in range(0, w.shape[0], PLAIN_CHUNK):
+        wr, wor = w[s0:s0 + PLAIN_CHUNK], wo[s0:s0 + PLAIN_CHUNK]
+        best = torch.full((wr.shape[0],), F_MAX, device=w.device)
+        best_idx = torch.full((wr.shape[0],), -1, dtype=torch.int64, device=w.device)
+        for c0 in range(0, n_tris, DENSE_TRI_CHUNK):
+            c1 = min(c0 + DENSE_TRI_CHUNK, n_tris)
+            s_ab, s_bc, s_ca = (wr @ edge_mat[e, :, c0:c1] for e in range(3))
+            num = wor @ plane_mat[:, c0:c1]
+            det = s_ab + s_bc + s_ca
+            parallel = det == 0.0
+            inv_det = 1.0 / torch.where(parallel, 1.0, det)
+            t = -num * inv_det
+            u = s_ca * inv_det
+            v = s_ab * inv_det
+            m_lo = torch.minimum(torch.minimum(u, v), t)
+            m_hi = torch.maximum(u, u + v)
+            accept = ~parallel & (m_lo >= -EPS) & (m_hi <= 1.0 + EPS)
+            blk_min, blk_arg = torch.where(accept, t, F_MAX).min(dim=1)
+            better = blk_min < best
+            best_idx = torch.where(better, blk_arg + c0, best_idx)
+            best = torch.where(better, blk_min, best)
+        ts.append(best)
+        idxs.append(best_idx.to(torch.int32))
+    return torch.cat(ts), torch.cat(idxs)
+
+
+nearest_hit_plain.calls = 0
+
+
+def nearest_hit(
+    w: torch.Tensor,  # (N, 8) [dir, orig x dir, 0, 0]
+    wo: torch.Tensor,  # (N, 8) [orig, -1, alive, 0, 0, 0]
+    edge_mat: torch.Tensor,  # (3, 8, T)
+    plane_mat: torch.Tensor,  # (8, T)
+    cluster_aabb: torch.Tensor,  # (8, T / 128)
+    cull: bool = True,
+    n_valid: int = 0,
+    swept: torch.Tensor = None,
+):
+    """Dense nearest hit (JAX ``pallas/trace.py::nearest_hit``): returns
+    (t (N,), idx (N,) int32, -1 on a miss), N a multiple of ``DENSE_TILE``.
+    With ``cull`` a live ray skips the clusters its slab test cannot reach
+    with a better t; ``n_valid`` cuts the sweep to the runs that hold real
+    triangles.  A dead ray's result is unspecified.  Launches kernel 5 for
+    CUDA tensors (counted in ``nearest_hit.launches``), runs the plain
+    version for CPU ones.  ``swept``, an int32 (N / DENSE_TILE,) CUDA
+    tensor, receives each thread block's count of swept runs."""
+    n = w.shape[0]
+    t_tris = plane_mat.shape[1]
+    if n % DENSE_TILE:
+        raise ValueError(f"{n} rays do not fill tiles of {DENSE_TILE}")
+    if w.device.type == "cpu":
+        return nearest_hit_plain(w, wo, edge_mat, plane_mat, n_valid)
+    if w.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w.device}")
+    dev = w.device
+    runs = _dense_runs(t_tris, n_valid)
+    nt = n // DENSE_TILE
+    _check(w, "w", torch.float32, (n, 8), dev)
+    _check(wo, "wo", torch.float32, (n, 8), dev)
+    _check(edge_mat, "edge_mat", torch.float32, (3, 8, t_tris), dev)
+    _check(plane_mat, "plane_mat", torch.float32, (8, t_tris), dev)
+    _check(cluster_aabb, "cluster_aabb", torch.float32, (8, t_tris // DENSE_RUN), dev)
+    if swept is not None:
+        _check(swept, "swept", torch.int32, (nt,), dev)
+    margin = _cluster_margin(cluster_aabb).reshape(1)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    err = _build.library().ptt_nearest_hit(
+        ctypes.c_void_p(w.data_ptr()),
+        ctypes.c_void_p(wo.data_ptr()),
+        ctypes.c_void_p(edge_mat.data_ptr()),
+        ctypes.c_void_p(plane_mat.data_ptr()),
+        ctypes.c_int(t_tris),
+        ctypes.c_void_p(cluster_aabb.data_ptr()),
+        ctypes.c_void_p(margin.data_ptr()),
+        ctypes.c_int(runs),
+        ctypes.c_int(nt),
+        ctypes.c_int(int(cull)),
+        ctypes.c_void_p(t.data_ptr()),
+        ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_void_p(swept.data_ptr() if swept is not None else None),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    _build.check(err, "ptt_nearest_hit")
+    nearest_hit.launches += 1
+    return t, idx
+
+
+nearest_hit.launches = 0
+
+
 def ray_vectors(ro: torch.Tensor, rd_n: torch.Tensor, alive_f=None) -> torch.Tensor:
     """The (N, 16) ray vectors ``[d, orig x d, orig, -1, alive, 0...]`` the
     traversal kernels take, of normalized directions; ``alive_f`` (N, 1)
@@ -266,18 +415,45 @@ def primary_inputs(world: WorldTriangles, ro, rd, alive=None):
     return w16, block_list
 
 
-def trace_pallas(world: WorldTriangles, ro, rd, alive=None, return_idx: bool = False):
-    """Full-scene nearest hit through the worklist kernel; the same result
-    contract as :func:`..ops.plucker.trace_mxu`.  With ``return_idx`` it
+def dense_inputs(ro, rd, alive=None):
+    """The ray vectors kernel 5 takes, rays padded to a multiple of
+    ``RAY_TILE`` (padding lanes dead): ``w`` (N, 8) ``[d, o x d, 0, 0]``
+    and ``wo`` (N, 8) ``[o, -1, alive, 0, 0, 0]`` of normalized
+    directions."""
+    n = ro.shape[0]
+    dev = ro.device
+    rd_n = normalize(rd)
+    alive_f = (torch.ones((n, 1), device=dev) if alive is None
+               else alive.to(torch.float32)[:, None])
+    pad = (-n) % RAY_TILE
+    if pad:
+        ro = torch.cat([ro, ro.new_zeros(pad, 3)])
+        rd_n = torch.cat([rd_n, rd_n.new_ones(pad, 3)])
+        alive_f = torch.cat([alive_f, alive_f.new_zeros(pad, 1)])
+    m = ro.shape[0]
+    w = torch.cat([rd_n, cross3(ro, rd_n), torch.zeros((m, 2), device=dev)], dim=-1)
+    wo = torch.cat([ro, torch.full((m, 1), -1.0, device=dev), alive_f,
+                    torch.zeros((m, 3), device=dev)], dim=-1)
+    return w, wo
+
+
+def trace_pallas(world: WorldTriangles, ro, rd, alive=None, cull: bool = True,
+                 return_idx: bool = False):
+    """Full-scene nearest hit; the same result contract as
+    :func:`..ops.plucker.trace_mxu`.  A world with a fused pack is traced
+    through its worklists (kernel 1) when ``cull``; a world without one,
+    or ``cull=False``, through the dense sweep (kernel 5).  ``alive`` (N,)
+    bool keeps dead lanes out of the culling.  With ``return_idx`` it
     returns ``(HitRecord, idx)``, idx (N,) int32 the hit triangle's baked
     index (0 on a miss)."""
-    if world.fused_ops is None:
-        raise NotImplementedError(
-            "the dense no-pack tracer is not ported yet (ROADMAP B5)"
-        )
     n = ro.shape[0]
-    w16, block_list = primary_inputs(world, ro, rd, alive)
-    t, idx = nearest_hit_fused(w16, world.fused_ops, block_list, RAY_TILE, world.tri_block)
+    if cull and world.fused_ops is not None:
+        w16, block_list = primary_inputs(world, ro, rd, alive)
+        t, idx = nearest_hit_fused(w16, world.fused_ops, block_list, RAY_TILE, world.tri_block)
+    else:
+        w, wo = dense_inputs(ro, rd, alive)
+        t, idx = nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
+                             cull=cull, n_valid=world.n_valid)
     idx = torch.clamp(idx[:n], min=0)
     rec = hit_record(world, t[:n], idx.long())
     return (rec, idx) if return_idx else rec

@@ -13,6 +13,8 @@ plain reference for hits.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import constants
@@ -23,6 +25,9 @@ from .math import cross3, dot3, inv3x3, normalize, normalize_guarded
 F_MAX = constants.FLOAT_MAX
 EPS = constants.EPSILON
 SUB_BLOCK = 128  # cluster / sub-block width of the bake
+# The fused pack costs 320 bytes a triangle with its attribute rows; JAX
+# drops it above this many world triangles, and so does the port.
+PACK_MAX_TRIANGLES = 2_097_152
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,16 +63,28 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dot3(v, v))
 
 
-def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTriangles:
+def keeps_pack(n_world_triangles: int) -> bool:
+    """Whether the bake emits the fused pack for a world of this many
+    triangles (padding included): JAX's budget of ``PACK_MAX_TRIANGLES``
+    (``pathtracerap_tpu/ops/plucker.py:194``).  Above it the world has no
+    pack and every engine routes to the dense ``pallas`` tracer."""
+    return n_world_triangles <= PACK_MAX_TRIANGLES
+
+
+def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) -> WorldTriangles:
     """Bake all model instances into a world-space triangle soup, with the
-    fused (16, 4*T) operand pack, block / sub-block AABBs and attribute
-    rows of the worklist kernels (see :class:`WorldTriangles`).
+    dense tracer's operands (``edge_mat``, ``plane_mat``, ``cluster_aabb``)
+    and, unless ``fused_tile`` is None or the world is above the pack
+    budget (:func:`keeps_pack`), the fused (16, 4*T) operand pack, block /
+    sub-block AABBs and attribute rows of the worklist kernels (see
+    :class:`WorldTriangles`).  Without a pack the triangle axis is padded
+    to ``SUB_BLOCK`` and ``tri_block`` is 0.
 
     Differentiable in ``vertex_pos``, ``vertex_nrm``, ``model_to_world``
     and ``mat_color``: the integer parts (Morton codes, the argsorts, the
     static counts) carry no gradient and cut no path one needs, and no
     tensor that may require grad is written in place."""
-    if fused_tile % SUB_BLOCK:
+    if fused_tile is not None and fused_tile % SUB_BLOCK:
         raise ValueError(f"fused_tile must be a multiple of {SUB_BLOCK}, got {fused_tile}")
     src = scene.world_tri_src.long()
     mdl = scene.world_tri_model.long()
@@ -142,16 +159,26 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTria
 
     tw = a.shape[0]
     n_world_valid = int(scene.n_world_valid) or tw
-    t_pad = _round_up(tw, fused_tile)
+    if not keeps_pack(tw):
+        fused_tile = None
+    t_pad = _round_up(tw, fused_tile or SUB_BLOCK)
     pad = t_pad - tw
-    nb = t_pad // fused_tile
 
     def padt(x, value=0.0):
         tail = torch.full((pad,) + tuple(x.shape[1:]), value, dtype=x.dtype, device=dev)
         return torch.cat([x, tail], dim=0)
 
-    edge_pluecker = torch.stack([padt(e_ab).T, padt(e_bc).T, padt(e_ca).T], dim=0)  # (3, 6, T)
+    # the dense tracer's operands, JAX's layout: edge columns padded to 8
+    # rows, (3, 8, T); the plane [n; d; 0...], (8, T).  edge_pluecker is a
+    # view of edge_mat's first six rows, not a second copy.
+    edge_mat = torch.cat(
+        [torch.stack([padt(e_ab).T, padt(e_bc).T, padt(e_ca).T], dim=0),
+         torch.zeros((3, 2, t_pad), device=dev)],
+        dim=1,
+    )
+    edge_pluecker = edge_mat[:, 0:6]  # (3, 6, T)
     n_p, d_p = padt(n), padt(d_plane)
+    plane_mat = torch.cat([n_p.T, d_p[None, :], torch.zeros((4, t_pad), device=dev)], dim=0)
 
     # per-128-triangle cluster AABBs; padding triangles contribute an
     # inverted box (min = +FMAX, max = -FMAX)
@@ -173,58 +200,63 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTria
     zeros2 = torch.zeros((cl_min.shape[0], 2), device=dev)
     cluster_aabb = torch.cat([cl_min.T, cl_max.T, zeros2.T], dim=0)  # (8, T/128)
 
-    # fused (16, 4*T) pack: per block, columns [ab | bc | ca | plane]; edge
-    # columns in rows 0-5, the negated plane column [-n, -d] in rows 6-9,
-    # so [d, o x d, o, -1, alive, 0...] . column is a side value or t*det
-    z10 = torch.zeros((10, t_pad), device=dev)
-    q_edges = [torch.cat([edge_pluecker[k], z10], dim=0) for k in range(3)]
-    q_plane = torch.cat(
-        [torch.zeros((6, t_pad), device=dev), -n_p.T, -d_p[None, :], torch.zeros((6, t_pad), device=dev)],
-        dim=0,
-    )
-    fused_ops = (
-        torch.stack(q_edges + [q_plane], dim=0)  # (4, 16, T)
-        .reshape(4, 16, nb, fused_tile)
-        .permute(1, 2, 0, 3)  # (16, nb, 4, TB)
-        .reshape(16, 4 * t_pad)
-        .contiguous()
-    )
-    # per-block AABBs with the same slack; only the real blocks are kept
-    # (an inverted box is always hit under the min/max-swapped slab test)
-    b_min = tri_min.reshape(nb, -1, 3).amin(dim=1)
-    b_max = tri_max.reshape(nb, -1, 3).amax(dim=1)
-    b_diag = _norm(torch.clamp(b_max - b_min, min=0.0))[:, None]
-    b_pad = 2.0 * EPS * b_diag + 1e-5 * scene_diag + 1e-6
-    block_aabb = torch.cat(
-        [b_min - b_pad, b_max + b_pad, torch.zeros((nb, 2), device=dev)], dim=-1
-    )  # (nb, 8)
-    nb_real = -(-n_world_valid // fused_tile)
-    block_aabb = block_aabb[:nb_real].contiguous()
-    # 128-triangle sub-block AABBs, row-major; pure-padding rows are NaN so
-    # every worklist comparison rejects them
-    nsb_real = -(-n_world_valid // SUB_BLOCK)
-    sub_aabb = torch.cat([cl_min, cl_max, zeros2], dim=-1)  # (nsb, 8)
-    sub_row = torch.arange(sub_aabb.shape[0], device=dev)[:, None]
-    sub_aabb = torch.where(sub_row < nsb_real, sub_aabb, torch.nan)
+    fused_ops = block_aabb = attr_rows = sub_aabb = None
+    if fused_tile is not None:
+        nb = t_pad // fused_tile
+        # fused (16, 4*T) pack: per block, columns [ab | bc | ca | plane];
+        # edge columns in rows 0-5, the negated plane column [-n, -d] in
+        # rows 6-9, so [d, o x d, o, -1, alive, 0...] . column is a side
+        # value or t*det
+        z10 = torch.zeros((10, t_pad), device=dev)
+        q_edges = [torch.cat([edge_pluecker[k], z10], dim=0) for k in range(3)]
+        z6 = torch.zeros((6, t_pad), device=dev)
+        q_plane = torch.cat([z6, -n_p.T, -d_p[None, :], z6], dim=0)
+        fused_ops = (
+            torch.stack(q_edges + [q_plane], dim=0)  # (4, 16, T)
+            .reshape(4, 16, nb, fused_tile)
+            .permute(1, 2, 0, 3)  # (16, nb, 4, TB)
+            .reshape(16, 4 * t_pad)
+            .contiguous()
+        )
+        # per-block AABBs with the same slack; only the real blocks are
+        # kept (an inverted box is always hit under the min/max-swapped
+        # slab test)
+        b_min = tri_min.reshape(nb, -1, 3).amin(dim=1)
+        b_max = tri_max.reshape(nb, -1, 3).amax(dim=1)
+        b_diag = _norm(torch.clamp(b_max - b_min, min=0.0))[:, None]
+        b_pad = 2.0 * EPS * b_diag + 1e-5 * scene_diag + 1e-6
+        block_aabb = torch.cat(
+            [b_min - b_pad, b_max + b_pad, torch.zeros((nb, 2), device=dev)], dim=-1
+        )  # (nb, 8)
+        nb_real = -(-n_world_valid // fused_tile)
+        block_aabb = block_aabb[:nb_real].contiguous()
+        # 128-triangle sub-block AABBs, row-major; pure-padding rows are
+        # NaN so every worklist comparison rejects them
+        nsb_real = -(-n_world_valid // SUB_BLOCK)
+        sub_aabb = torch.cat([cl_min, cl_max, zeros2], dim=-1)  # (nsb, 8)
+        sub_row = torch.arange(sub_aabb.shape[0], device=dev)[:, None]
+        sub_aabb = torch.where(sub_row < nsb_real, sub_aabb, torch.nan)
 
-    # per-triangle attribute rows (16, T): [shade_n(0:3), mat_type(3),
-    # rgb(4:7), geom_n(7:10), idx+1(10), refractive_index(11), 0(12:16)]
-    geom_n = normalize_guarded(n)
-    attr_rows = torch.cat(
-        [
-            padt(shade_n).T,
-            padt(mat_type.to(torch.float32))[None, :],
-            padt(mat_color).T,
-            padt(geom_n).T,
-            (torch.arange(t_pad, dtype=torch.float32, device=dev) + 1.0)[None, :],
-            padt(mat_ri)[None, :],
-            torch.zeros((4, t_pad), device=dev),
-        ],
-        dim=0,
-    ).contiguous()  # (16, T)
+        # per-triangle attribute rows (16, T): [shade_n(0:3), mat_type(3),
+        # rgb(4:7), geom_n(7:10), idx+1(10), refractive_index(11), 0(12:16)]
+        geom_n = normalize_guarded(n)
+        attr_rows = torch.cat(
+            [
+                padt(shade_n).T,
+                padt(mat_type.to(torch.float32))[None, :],
+                padt(mat_color).T,
+                padt(geom_n).T,
+                (torch.arange(t_pad, dtype=torch.float32, device=dev) + 1.0)[None, :],
+                padt(mat_ri)[None, :],
+                torch.zeros((4, t_pad), device=dev),
+            ],
+            dim=0,
+        ).contiguous()  # (16, T)
 
     return WorldTriangles(
         edge_pluecker=edge_pluecker,
+        edge_mat=edge_mat,
+        plane_mat=plane_mat,
         plane_n=n_p,
         plane_d=d_p,
         cluster_aabb=cluster_aabb,
@@ -242,7 +274,7 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: int = 512) -> WorldTria
         block_aabb=block_aabb,
         attr_rows=attr_rows,
         sub_aabb=sub_aabb,
-        tri_block=fused_tile,
+        tri_block=fused_tile or 0,
         n_valid=n_world_valid,
     )
 

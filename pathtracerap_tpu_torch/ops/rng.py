@@ -101,25 +101,28 @@ def camera_jitter_uniforms(key, sample_index, tile_index, tile_n: int) -> torch.
 
 
 def _rng_tiling(n: int, rng_tile: int = RNG_TILE):
-    """Uniforms are drawn in tiles of ``min(n, 8192)`` rays.  Returns
+    """Uniforms are drawn in tiles of ``min(n, rng_tile)`` rays.  Returns
     (tile_n, n_tiles)."""
     if n <= rng_tile:
         return n, 1
     return rng_tile, -(-n // rng_tile)
 
 
-def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile_base: int = 0):
+def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile_base: int = 0,
+                   rng_tile: int = RNG_TILE):
     """(n_pad, 4 * max_bounces) uniforms for one sample iteration, or for
     ``ns`` of them when ``sample_index`` is a sequence: then
     (ns * n_pad, 4 * max_bounces), rows in (sample, ray) order.
 
     Column block ``b`` holds the draws of depth ``max_bounces - b`` (the
     reference seeds with ``remaining_bounces``, Renderer.cpp:435); RNG tile
-    ``k`` of the chunk is global tile ``tile_base + k``; rows past the
-    drawn tiles are zero, rows past ``n_pad`` are dropped.  Every key of
-    every (sample, depth, tile) is hashed in one batched pass, so the
-    launch count does not grow with samples or bounces."""
-    tile_n, nt = _rng_tiling(n)
+    ``k`` of the chunk (``rng_tile`` rays: 8192 for the megakernel engines,
+    the caller's ``tile_size`` for the per-bounce ones) is global tile
+    ``tile_base + k``; rows past the drawn tiles are zero, rows past
+    ``n_pad`` are dropped.  Every key of every (sample, depth, tile) is
+    hashed in one batched pass, so the launch count does not grow with
+    samples or bounces."""
+    tile_n, nt = _rng_tiling(n, rng_tile)
     dev = key.device
     samples = torch.as_tensor(sample_index, dtype=torch.int64, device=dev).reshape(-1)
     depths = max_bounces - torch.arange(max_bounces, dtype=torch.int64, device=dev)
@@ -133,12 +136,13 @@ def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile
     return u[:, :, :n_pad].permute(0, 2, 1, 3).reshape(-1, DRAWS_PER_BOUNCE * max_bounces)
 
 
-def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int = 0):
-    """(n_pad, 2) jitter offsets of one sample over the RNG tiles of an
-    ``n``-ray chunk, as the JAX fused engine draws them (``vmap`` of
-    :func:`camera_jitter_uniforms` over tiles ``tile_base + k``): rows past
+def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int = 0,
+                          rng_tile: int = RNG_TILE):
+    """(n_pad, 2) jitter offsets of one sample over the ``rng_tile``-ray
+    RNG tiles of an ``n``-ray chunk, as the JAX engines draw them
+    (:func:`camera_jitter_uniforms` for tiles ``tile_base + k``): rows past
     the drawn tiles are zero, rows past ``n_pad`` are dropped."""
-    tile_n, nt = _rng_tiling(n)
+    tile_n, nt = _rng_tiling(n, rng_tile)
     tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=key.device)
     u = camera_jitter_uniforms(key, sample_index, tiles, tile_n).reshape(-1, 2)
     if u.shape[0] < n_pad:

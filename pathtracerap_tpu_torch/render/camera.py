@@ -28,9 +28,10 @@ def generate_rays(
     every pixel's image-plane point moves by ``uniform(key, (2, N))`` of a
     pixel, as JAX's ``generate_rays(camera, resolution, key)``; without a
     key the rays are the jitterless ones.  ``device`` defaults to the
-    key's."""
-    if device is None and key is not None:
-        device = key.device
+    key's, and without a key to the card, as the port's other entry
+    points do; the CPU is for callers that ask for it."""
+    if device is None:
+        device = key.device if key is not None else "cuda"
     w, h = resolution
     n = w * h
     iray = torch.arange(n, dtype=torch.int32, device=device)

@@ -158,8 +158,16 @@ class WorldTriangles:
     """World-space baked triangle soup.
 
     The triangle axis is padded to a multiple of ``tri_block`` (the fused
-    pack's block width); padding rows have ``valid == 0`` and zero
+    pack's block width), or of 128 in a world without a pack
+    (``tri_block == 0``); padding rows have ``valid == 0`` and zero
     geometry, so every hit test rejects them (det == 0).
+
+    ``edge_mat`` (3, 8, T) and ``plane_mat`` (8, T) are the dense tracer's
+    operands (kernel 5, ``csrc/nearest_hit.cu``): per triangle the three
+    edge columns ``[p x q, q - p, 0, 0]`` and ``[n, d_plane, 0...]``, so a
+    ray's ``[dir, orig x dir, 0, 0]`` gives the side values and its
+    ``[orig, -1, alive, 0...]`` gives ``orig . n - d_plane``;
+    ``cluster_aabb`` gates them per 128-triangle cluster.
 
     ``fused_ops`` (16, 4*T) is the operand pack the traversal kernels
     read.  Per block of ``tri_block`` triangles its columns are grouped
@@ -191,6 +199,8 @@ class WorldTriangles:
     e2: torch.Tensor  # (T, 3) f32 c - a
     tri_model: torch.Tensor  # (T,) i32 owning model instance (0 on padding)
     mat_table: torch.Tensor  # (M, 3) f32 per-model color
+    edge_mat: Optional[torch.Tensor] = None  # (3, 8, T) f32 edge_pluecker + 2 zero rows
+    plane_mat: Optional[torch.Tensor] = None  # (8, T) f32 [n; d_plane; 0...]
     fused_ops: Optional[torch.Tensor] = None  # (16, 4*T) f32
     block_aabb: Optional[torch.Tensor] = None  # (nb_real, 8) f32
     attr_rows: Optional[torch.Tensor] = None  # (16, T) f32

@@ -4,6 +4,10 @@
     python3 profile_render.py --quality             # the jittered quality render
     python3 profile_render.py --train mat_color     # bench.py's train step
     python3 profile_render.py --train vertex_pos    # the same in quality mode
+    python3 profile_render.py --train pallas        # the default step, Cornell box
+    python3 profile_render.py --large beyond        # 2.16 M triangles, no fused pack
+    python3 profile_render.py --large beyond_inside # the same from inside the room
+    python3 profile_render.py --large megascene     # the suite's 701-block megascene
 
 The render is the reference scene at the benchmark configuration
 (1000x800, 24 spp, 5 bounces, ``engine="fused"`` routed to the binned
@@ -12,7 +16,14 @@ jittered quality camera (``parity=False``, ``CameraConfig(jitter=True)``),
 which stays on the whole-sample fused engine, kernel 4.  The train step is
 ``make_train_step`` at 1000x800, 8 spp, 5 bounces, ``engine="fused"`` on
 ``mat_color`` (parity mode, bench.py:84-102), or its forward and backward on
-``vertex_pos`` in quality mode.  Each is run once to warm up, three times
+``vertex_pos`` in quality mode; ``--train pallas`` is ``make_train_step``
+with its defaults (the per-bounce pallas diff engine) on the Cornell box at
+256x256, 8 spp, 4 bounces.  ``--large`` renders the suite's large scenes
+at the megascene's settings (512x512, 2 spp, 6 bounces,
+``engine="fused"``): a 2,163,864-triangle sphere in the room, above the
+fused pack's budget, so on the per-bounce pallas engine and kernel 5, from
+the suite's room camera or from inside the room; or the megascene on the
+binned engine.  Each is run once to warm up, three times
 timed on the host clock, then once under ``torch.profiler``.  It prints the
 unprofiled walls, the profiled wall, the number of device kernels, the
 device busy time (the union of the kernel intervals) and its share of the
@@ -34,6 +45,12 @@ SPP = 24
 TRAIN_SPP = 8  # bench.py:89
 MAX_BOUNCES = 5
 TOP = 30  # kernel names listed
+CORNELL_RES, CORNELL_BOUNCES = (256, 256), 4  # bench_suite.py:106-114
+CORNELL_CAMERA = dict(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0), plane_y=(-40.0, 40.0),
+                      plane_z=100.0)
+# the suite's room camera stands outside the room; this one inside it
+INSIDE_CAMERA = dict(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0), plane_y=(-48.0, 48.0),
+                     plane_z=120.0)
 
 
 def busy_us(spans) -> float:
@@ -62,6 +79,22 @@ def render_fn(dev, quality: bool = False):
     return r.render, {"engine": r.engine, "quality": quality}
 
 
+def large_fn(dev, which: str):
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, build_highpoly_scene, suite_configs
+
+    spec = suite_configs()["megascene"]
+    if which == "megascene":
+        host, camera = spec["scene"](), _ROOM_CAMERA
+    else:
+        host = build_highpoly_scene(subdiv=736, use_asset=False)
+        camera = CameraConfig(**INSIDE_CAMERA) if which == "beyond_inside" else _ROOM_CAMERA
+    cfg = RenderConfig(**{**spec["cfg"], "samples_per_pixel": spec["measure_spp"],
+                          "camera": camera}, engine="fused")
+    r = Renderer(host.to_device(dev), cfg, device=dev)
+    return r.render, {"large": which, "engine": r.engine, "triangles": r.world.n_valid}
+
+
 def train_fn(dev, param: str):
     import torch
 
@@ -69,10 +102,19 @@ def train_fn(dev, param: str):
     from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad, make_train_step
     from pathtracerap_tpu_torch.ops.rng import prng_key
 
+    key = prng_key(0, dev)
+    if param == "pallas":
+        from pathtracerap_tpu_torch import build_cornell_box_scene
+
+        scene = build_cornell_box_scene().to_device(dev)
+        params = extract_params(scene, ("mat_color",))
+        target = torch.zeros((CORNELL_RES[0] * CORNELL_RES[1], 3), device=dev)
+        step = make_train_step(scene, CameraConfig(**CORNELL_CAMERA), CORNELL_RES, TRAIN_SPP,
+                               CORNELL_BOUNCES)
+        return lambda: step(params, target, key), {"train": "mat_color", "engine": "pallas"}
     scene = build_reference_scene().to_device(dev)
     params = extract_params(scene, (param,))
     target = torch.zeros((RESOLUTION[0] * RESOLUTION[1], 3), device=dev)
-    key = prng_key(0, dev)
     if param == "mat_color":
         step = make_train_step(scene, CameraConfig(), RESOLUTION, TRAIN_SPP, MAX_BOUNCES,
                                tile_size=8192, engine="fused")
@@ -89,10 +131,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     what = ap.add_mutually_exclusive_group()
-    what.add_argument("--train", choices=("mat_color", "vertex_pos"),
-                      help="profile a train step on this parameter instead of the render")
+    what.add_argument("--train", choices=("mat_color", "vertex_pos", "pallas"),
+                      help="profile a train step on this parameter (or the default step on the "
+                           "Cornell box) instead of the render")
     what.add_argument("--quality", action="store_true",
                       help="profile the jittered quality render instead of the parity one")
+    what.add_argument("--large", choices=("beyond", "beyond_inside", "megascene"),
+                      help="profile a render of one of the suite's large scenes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render: no CUDA device", file=sys.stderr)
@@ -106,7 +151,12 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
 
-    run, what = train_fn(dev, args.train) if args.train else render_fn(dev, args.quality)
+    if args.train:
+        run, what = train_fn(dev, args.train)
+    elif args.large:
+        run, what = large_fn(dev, args.large)
+    else:
+        run, what = render_fn(dev, args.quality)
     run()  # warm-up: kernel build and first launches
 
     def wall() -> float:

@@ -49,7 +49,7 @@ def worlds():
 
 @pytest.fixture(scope="module")
 def rays():
-    return generate_rays(RenderConfig().camera, (32, 16))
+    return generate_rays(RenderConfig().camera, (32, 16), device="cpu")
 
 
 def test_ray_tile_and_sub_block_predicate(worlds):
@@ -126,7 +126,7 @@ def test_render_samples_binned_matches_jax(worlds, n_samples, resolution):
     """The whole binned engine at 4 bounces (5 samples: one group of 4
     plus one single sample), at the engines' own tolerance."""
     world, jw = worlds
-    ro, rd = generate_rays(RenderConfig().camera, resolution)
+    ro, rd = generate_rays(RenderConfig().camera, resolution, device="cpu")
     jro, jrd = jax_generate_rays(RenderConfig().camera, resolution)
     port = TM.render_samples_binned(world, ro, rd, prng_key(7, "cpu"), n_samples, 4)
     ref = np.asarray(JM.render_samples_binned(jw, jro, jrd, jax.random.PRNGKey(7),
@@ -178,9 +178,18 @@ def test_effective_engine_routing(worlds):
 
 @pytest.mark.parametrize("engine, item", [("mxu", "A10"), ("parity", "A10"), ("pallas", "A11")])
 def test_renderer_names_missing_engines(engine, item):
+    """The parity DDA engine raises, naming its ROADMAP item; the
+    per-bounce ``mxu`` and ``pallas`` engines, ported with A11, render."""
     scene = build_reference_scene().to_device("cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        Renderer(scene, RenderConfig(resolution=(8, 8), engine=engine), device="cpu")
+    cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=1, max_bounces=2, engine=engine)
+    if engine == "parity":
+        with pytest.raises(NotImplementedError, match=item):
+            Renderer(scene, cfg, device="cpu")
+        return
+    r = Renderer(scene, cfg, device="cpu")
+    assert r.engine == engine
+    img = r.render(seed=1)
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all() and img.mean() > 0.0
 
 
 def test_renderer_rejects_jittered_camera():

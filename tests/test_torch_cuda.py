@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the GPU.
 
 A CUDA kernel has no CPU mode, so these tests skip where no GPU is
-present (kernels 1 to 4, the train step on the card against CPU tensors).  On the GPU machine (which has no JAX, so the JAX conftest is
-left out):
+present (kernels 1 to 5, kernels 1 and 2 above 313 blocks, the train
+steps on the card against CPU tensors).  On the GPU machine (which has no
+JAX, so the JAX conftest is left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -273,3 +274,101 @@ def test_cornell_step_on_gpu_matches_cpu(dev):
     np.testing.assert_allclose(l_g.item(), l_c.item(), rtol=1e-5)
     np.testing.assert_allclose(g_g["mat_color"].cpu().numpy(), g_c["mat_color"].numpy(),
                                rtol=1e-4, atol=1e-7)
+
+
+def _check_dense(world, ro, rd, alive=None, cull=True):
+    """Kernel 5 against its plain version: equal indices on live rays (but
+    for 1 in 10,000), t within rtol 1e-5."""
+    w, wo = TT.dense_inputs(ro, rd, alive)
+    args = (w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb)
+    before = TT.nearest_hit.launches
+    t, idx = TT.nearest_hit(*args, cull=cull, n_valid=world.n_valid)
+    torch.cuda.synchronize()
+    assert TT.nearest_hit.launches == before + 1
+    tp, ip = TT.nearest_hit_plain(w, wo, world.edge_mat, world.plane_mat, world.n_valid)
+    live = wo[:, 4] > 0
+    same = (idx == ip) & live
+    assert same.sum().item() >= 0.9999 * live.sum().item()
+    both = same & (ip >= 0)
+    assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both].max().item() <= 1e-5
+    return t, idx
+
+
+def test_dense_kernel_matches_plain(dev):
+    """The reference scene baked without a pack: the camera's primaries,
+    culled and not, and bounce-like rays from inside the scene with a
+    third of them dead."""
+    world = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
+    assert world.fused_ops is None
+    ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
+    for cull in (True, False):
+        _check_dense(world, ro, rd, cull=cull)
+    g = np.random.default_rng(0)
+    ro = torch.tensor(g.uniform(-200, 200, (8192, 3)), dtype=torch.float32, device=dev)
+    rd = torch.tensor(g.normal(size=(8192, 3)), dtype=torch.float32, device=dev)
+    _check_dense(world, ro, rd, alive=torch.arange(8192, device=dev) % 3 != 0)
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1e3])
+def test_dense_kernel_gate_at_extreme_scales(dev, scale):
+    """The cluster gate's margin is scale-relative: at millimetre and
+    kilometre scales the culled kernel finds the plain version's hits."""
+    world = bake_world_triangles(build_cornell_box_scene(size=400.0 * scale).to_device(dev),
+                                 fused_tile=None)
+    g = np.random.default_rng(1234)
+    ro = torch.tensor(g.uniform(-150, 150, (2048, 3)) * scale, dtype=torch.float32, device=dev)
+    target = torch.tensor(g.uniform(-180, 180, (2048, 3)) * scale, dtype=torch.float32, device=dev)
+    t, _ = _check_dense(world, ro, target - ro)
+    assert (t < 9999999.0).float().mean().item() > 0.3
+
+
+@pytest.fixture(scope="module")
+def big_world(dev):
+    """A 200k-triangle sphere in the room: 391 blocks, above the TPU
+    kernels' streaming threshold of 313."""
+    from pathtracerap_tpu_torch.bench_suite import build_highpoly_scene
+
+    world = bake_world_triangles(build_highpoly_scene(subdiv=224, use_asset=False).to_device(dev))
+    assert world.block_aabb.shape[0] > 313 and not TM.use_sub_blocks(world)
+    return world
+
+
+def test_worklist_kernels_above_313_blocks(dev, big_world):
+    """Kernel 1 on the primaries and kernel 2 on a sorted bounce-1
+    wavefront, at block granularity over 391-entry worklists."""
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+
+    world = big_world
+    ro, rd = generate_rays(_ROOM_CAMERA, (128, 64), device=dev)
+    w16, lists = TT.primary_inputs(world, ro, rd)
+    assert lists.shape[1] == world.block_aabb.shape[0]
+    t, idx = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block)
+    tp, ip = TT.nearest_hit_fused_plain(w16, world.fused_ops, lists.shape[1], world.tri_block)
+    assert (idx == ip).float().mean().item() >= 0.9999
+    rd = normalize(rd)
+    hits0 = TT.trace_pallas(world, ro, rd)
+    pack, u_flat = TM.first_wavefront(world, ro, rd, hits0, prng_key(2, dev), 0, 4, ro.shape[0], 6,
+                                      True, 0)
+    pix = torch.arange(pack.shape[0], device=dev)
+    pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
+    ray_tile = TM.binned_ray_tile(world)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    assert unit == world.tri_block and ray_tile == 512
+    _check_bounce(world, pack, u_flat[:, 4:8][pix], lists, unit, ray_tile)
+
+
+def test_pallas_render_on_gpu_matches_cpu(dev):
+    """The per-bounce pallas engine at 32x16 x 2 spp x 3 bounces through
+    kernels 1 and 5 against the same render on CPU tensors."""
+    from pathtracerap_tpu_torch.render.wavefront import render_accumulate
+
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = build_reference_scene().to_device(d)
+        for tile in (512, None):
+            world = bake_world_triangles(scene, fused_tile=tile)
+            out[d.type, tile] = render_accumulate(scene, prng_key(3, d), CameraConfig(), (32, 16),
+                                                  2, 3, engine="pallas", world=world).cpu()
+    for tile in (512, None):
+        d = (out["cuda", tile] - out["cpu", tile]).abs()
+        assert d.mean().item() <= 1e-4 and (d <= 1e-5).float().mean().item() >= 0.995

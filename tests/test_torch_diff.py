@@ -178,7 +178,7 @@ def _jax_streams(jw, res, key, ns, parity):
 
 
 def _port_streams(world, res, key, ns, parity):
-    ro, rd = generate_rays(CAM, res)
+    ro, rd = generate_rays(CAM, res, device="cpu")
     n = ro.shape[0]
     pad = (-n) % 512
     ro_p = torch.cat([ro, ro.new_zeros(pad, 3)])
@@ -543,13 +543,18 @@ def test_geometry_loss_vertex_gradients_match_jax():
 
 @pytest.mark.parametrize("engine", ["pallas", "mxu"])
 def test_other_diff_engines_name_their_item(scenes, engine):
+    """The per-bounce diff engines (A8b) are ported: a loss, and a step with
+    make_train_step's default engine, on the reference scene; an engine
+    the package lacks raises."""
     scene, _ = scenes
     p = TG.extract_params(scene)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine=engine)
-    with pytest.raises(NotImplementedError, match="A8b"):
-        TG.make_train_step(scene, CAM, SMALL, 1, 2)(p, torch.zeros(SMALL[0] * SMALL[1], 3),
-                                                   prng_key(0, "cpu"))
+    img = TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine=engine)
+    assert img.shape == (SMALL[0] * SMALL[1], 3) and torch.isfinite(img).all() and img.max() > 0
+    loss, new = TG.make_train_step(scene, CAM, SMALL, 1, 2)(
+        p, torch.zeros(SMALL[0] * SMALL[1], 3), prng_key(0, "cpu"))
+    assert torch.isfinite(loss) and not torch.equal(new["mat_color"], p["mat_color"])
+    with pytest.raises(NotImplementedError, match="A10"):
+        TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine="parity")
 
 
 def test_single_block_world_names_its_item(worlds):
@@ -559,7 +564,7 @@ def test_single_block_world_names_its_item(worlds):
     world, _ = worlds
     one_block = dataclasses.replace(world, block_aabb=world.block_aabb[:1])
     assert not TF.binned_forward_active(one_block)
-    ro, rd = generate_rays(CAM, SMALL)
+    ro, rd = generate_rays(CAM, SMALL, device="cpu")
     TM.sample_fused_plain.calls = TM.bounce_trace_plain.calls = 0
     out = TF.render_samples_fused_diff(one_block, ro, rd, prng_key(0, "cpu"), 2, 2)
     assert TM.sample_fused_plain.calls == 2 and TM.bounce_trace_plain.calls == 0

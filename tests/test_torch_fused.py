@@ -144,7 +144,7 @@ def wavefront(reference):
     """A reference-scene wavefront at 32x16 padded to 512 rays: ray vectors,
     primary rows (with index + 1) and 4-bounce uniforms of 3 samples."""
     world, _ = reference
-    ro, rd = generate_rays(CameraConfig(), (32, 16))
+    ro, rd = generate_rays(CameraConfig(), (32, 16), device="cpu")
     rd_n = normalize(rd)
     hits, idx = trace_pallas(world, ro, rd_n, return_idx=True)
     prim = TM.primary_pack(hits, torch.where(hits.t < F_MAX, idx + 1, 0))
@@ -266,7 +266,7 @@ def test_slabbed_fused_calls_compose_exactly(cornell):
     """tests/test_megakernel.py:88: two RNG tiles of rays through one call
     and through two with the global tile numbering."""
     _, _, world, _ = cornell
-    ro, rd = generate_rays(CameraConfig(**CORNELL_CAM), (128, 128))
+    ro, rd = generate_rays(CameraConfig(**CORNELL_CAM), (128, 128), device="cpu")
     assert ro.shape[0] == 2 * rng.RNG_TILE
     key = _key(11)
     full = TM.render_samples_fused(world, ro, rd, key, 2, 3)
@@ -357,7 +357,7 @@ def test_single_block_diff_forward_streams_match_jax(cornell):
     primary indices in the primary rows (``diff/fast.py:294-313``)."""
     _, _, world, jw = cornell
     assert not TF.binned_forward_active(world)
-    ro, rd = generate_rays(CAM, RES)
+    ro, rd = generate_rays(CAM, RES, device="cpu")
     rd_n = normalize(rd)
     hits, idx0 = trace_pallas(world, ro, rd_n, return_idx=True)
     prim = TM.primary_pack(hits, torch.where(hits.t < F_MAX, idx0 + 1, 0))

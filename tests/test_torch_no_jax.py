@@ -25,14 +25,19 @@ cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=1, max_bounces=2, engine
                    parity=False, camera=CameraConfig(jitter=True))
 r = Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu")
 assert r.engine == "fused" and np.isfinite(r.render().numpy()).all()
+cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=1, max_bounces=2, engine="pallas")
+assert np.isfinite(Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu").render().numpy()).all()
 import torch
 from pathtracerap_tpu_torch import extract_params, make_train_step
+from pathtracerap_tpu_torch.bench_suite import suite_configs
 from pathtracerap_tpu_torch.ops.rng import prng_key
+assert "megascene" in suite_configs()
 scene = build_reference_scene().to_device("cpu")
-step = make_train_step(scene, CameraConfig(), (16, 8), 1, 2, engine="fused")
-params = extract_params(scene)
-loss, new = step(params, torch.zeros(16 * 8, 3), prng_key(0, "cpu"))
-assert torch.isfinite(loss) and not torch.equal(new["mat_color"], params["mat_color"])
+for engine in ("fused", "pallas"):
+    step = make_train_step(scene, CameraConfig(), (16, 8), 1, 2, engine=engine)
+    params = extract_params(scene)
+    loss, new = step(params, torch.zeros(16 * 8, 3), prng_key(0, "cpu"))
+    assert torch.isfinite(loss) and not torch.equal(new["mat_color"], params["mat_color"])
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """

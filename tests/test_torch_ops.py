@@ -104,7 +104,7 @@ def test_refract_scatter(data):
 def test_generate_rays(resolution):
     cam = CameraConfig()
     ro_j, rd_j = jcam.generate_rays(cam, resolution)
-    ro_t, rd_t = tcam.generate_rays(cam, resolution)
+    ro_t, rd_t = tcam.generate_rays(cam, resolution, device="cpu")
     _close(ro_t, ro_j, atol=0)
     _close(rd_t, rd_j, atol=0)
 
@@ -118,8 +118,9 @@ def test_generate_rays_jitter_not_ported():
     ro_t, rd_t = tcam.generate_rays(cam, (9, 4), rng.prng_key(3, "cpu"))
     _close(ro_t, ro_j, atol=0)
     _close(rd_t, rd_j, atol=0)
-    _close(tcam.generate_rays(cam, (9, 4))[1], jcam.generate_rays(cam, (9, 4))[1], atol=0)
-    assert not torch.equal(rd_t, tcam.generate_rays(cam, (9, 4))[1])
+    _close(tcam.generate_rays(cam, (9, 4), device="cpu")[1], jcam.generate_rays(cam, (9, 4))[1],
+           atol=0)
+    assert not torch.equal(rd_t, tcam.generate_rays(cam, (9, 4), device="cpu")[1])
 
 
 def _shade_inputs(data):

@@ -76,9 +76,15 @@ def test_trace_pallas_alive_mask(reference):
 
 
 def test_trace_pallas_needs_fused_pack(reference):
+    """The worklist trace needs the fused pack; a world without one takes
+    the dense sweep (kernel 5's plain version here) and finds the same
+    hits as JAX's worklist trace."""
     world = dataclasses.replace(reference[0], fused_ops=None)
-    with pytest.raises(NotImplementedError, match="B5"):
-        TT.trace_pallas(world, *reference[2])
+    calls = TT.nearest_hit_plain.calls, TT.nearest_hit_fused_plain.calls
+    h, idx = TT.trace_pallas(world, *reference[2], return_idx=True)
+    assert (TT.nearest_hit_plain.calls, TT.nearest_hit_fused_plain.calls) == (calls[0] + 1, calls[1])
+    np.testing.assert_array_equal(idx.numpy(), reference[4])
+    np.testing.assert_allclose(h.t.numpy(), np.asarray(reference[3].t), rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1e3])
