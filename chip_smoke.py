@@ -31,7 +31,16 @@ and read just after:
   8 spp, 4 bounces; the suite's 701-block megascene through
   ``run_config``, with kernels 1 and 2 against their plain versions at
   701 blocks; and small per-bounce renders and a default step on the card
-  held against CPU tensors.
+  held against CPU tensors;
+* kernels 1, 2 and 4 in their debug form (``PTAP_DEBUG=1``)
+  against their fast form at the main paths' shapes and on degenerate
+  rays; the profiling kernels P1 to P4 (``csrc/prof_parts.cu``,
+  ``csrc/prof_argmin.cu``) against their plain versions at the scripts'
+  sizes; a checkpointed render of the reference scene (binned) and of the
+  Cornell box (fused) stopped after its first chunk and resumed, bit-equal
+  to the unbroken chunked render; the main-path render with a
+  ``MetricsLogger`` and under ``profile_trace``; and the four profiling
+  scripts' ``main()`` (``pathtracerap_tpu_torch/scripts``) at full size.
 
 Every check raises on failure, so the script exits non-zero before its
 last line, which is
@@ -46,7 +55,10 @@ imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import glob
+import io
 import json
 import math
 import os
@@ -56,6 +68,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")  # checkpoints and traces (gitignored)
 GOLDEN = os.path.join(ROOT, "assets", "golden", "reference_scene.bmp")
 RESOLUTION = (1000, 800)
 SPP = 24
@@ -89,10 +102,19 @@ K5_IDX_SHARE, K5_T_REL = 0.9999, 1e-5
 INSIDE_CAMERA = dict(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0), plane_y=(-48.0, 48.0),
                      plane_z=120.0)
 MEGASCENE_BLOCKS = 701
-# bounds: NVIDIA H100 SXM data sheet (dense FP32 peak, HBM3 bandwidth)
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# bounds: NVIDIA H100 SXM data sheet (dense FP32 peak, dense BF16 tensor-core
+# peak, HBM3 bandwidth)
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PAIR_FLOPS = 47  # per (ray, triangle): 22 FMAs, det, division, t/u/v, accept chain
 GATE_FLOPS = 28  # per (live ray, cluster) of kernel 5: 6 sub, 6 mul, 10 min/max, 6 for the tests
+# the profiling kernels at the scripts' sizes (scripts/prof_kernel_parts.py:26-30)
+PROF_N, PROF_R, PROF_TB, PROF_NB = 800256, 512, 512, 8
+PROF_RTOL, PROF_CHAIN_SHARE = 1e-5, 0.999
+# per (ray, triangle) pair of P1's accept chain: det 2, reciprocal 1, t/u/v 3,
+# u + v 1, the parallel test and 5 range tests 6, select 1, min 1
+ACCEPT_FLOPS = 15
+RESUME_SPP, RESUME_CHUNK = 8, 4
+PROFILE_SPP = 4  # the profiled render: the main path's, at fewer samples
 
 
 def check(ok: bool, what: str) -> None:
@@ -122,13 +144,18 @@ def downsample(x, f: int):
     return x[: h - h % f, : w - w % f].reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
 
 
-def bound(flops: float, n_bytes: float) -> dict:
+def bound(flops: float, n_bytes: float, bf16_flops: float = 0.0) -> dict:
     """The least time the card could take for the work: the larger of the
-    operations over the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES
-    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": n_bytes}
+    operations (f32 ones over the f32 peak plus bf16 products over the
+    tensor cores' bf16 peak) and the bytes over the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES
+    out = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": n_bytes}
+    if bf16_flops:
+        out["bf16_flops"] = bf16_flops
+    return out
 
 
 def nbytes(*tensors) -> int:
@@ -315,13 +342,16 @@ def kernel3_vs_plain(world, dev):
 
 def _kernel_fns():
     from pathtracerap_tpu_torch.kernels import megakernel as MK
+    from pathtracerap_tpu_torch.kernels import prof as KP
     from pathtracerap_tpu_torch.kernels import trace as TT
 
     wrappers = {"trace_list": TT.nearest_hit_fused, "bounce": MK.bounce,
                 "bounce_trace": MK.bounce_trace, "sample_fused": MK.sample_fused,
-                "nearest_hit": TT.nearest_hit}
+                "nearest_hit": TT.nearest_hit, "prof_parts": KP.parts,
+                "prof_empty": KP.empty, "prof_argmin": KP.argmin_int}
     plains = (TT.nearest_hit_fused_plain, MK.bounce_plain, MK.bounce_trace_plain,
-              MK.sample_fused_plain, TT.nearest_hit_plain)
+              MK.sample_fused_plain, TT.nearest_hit_plain, KP.parts_plain, KP.empty_plain,
+              KP.argmin_int_plain)
     return wrappers, plains
 
 
@@ -329,6 +359,8 @@ def _zero_counts():
     wrappers, plains = _kernel_fns()
     for f in wrappers.values():
         f.launches = 0
+        if hasattr(f, "variant_launches"):
+            f.variant_launches.clear()
     for f in plains:
         f.calls = 0
 
@@ -598,18 +630,15 @@ def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=F
     return res
 
 
-def kernel4_vs_plain(ref_world, dev):
-    """Kernel 4 at full size in three modes: the quality render's first
-    slab (one jittered sample traced in the kernel, 5 bounces), the
-    Cornell render's first batch (8 samples from the primary rows, 4
-    bounces) and the Cornell step's emit_idx pass (one sample)."""
+def quality_slab(dev):
+    """The first slab of the quality render's first sample, as kernel 4
+    takes it: jittered ray vectors (FUSED_SLAB rays), empty primary rows
+    and the 5-bounce uniforms."""
     import torch
 
-    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
-    from pathtracerap_tpu_torch.kernels.megakernel import primary_pack
-    from pathtracerap_tpu_torch.kernels.trace import ray_vectors, trace_pallas
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.kernels.trace import ray_vectors
     from pathtracerap_tpu_torch.ops.math import normalize
-    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
     from pathtracerap_tpu_torch.ops.rng import chunk_jitter_uniforms, chunk_uniforms, prng_key
     from pathtracerap_tpu_torch.render.camera import generate_rays, jitter_step
 
@@ -623,9 +652,27 @@ def kernel4_vs_plain(ref_world, dev):
     rd_s = rd + torch.cat([ju[:, 0:1] * step[0], ju[:, 1:2] * step[1], torch.zeros_like(ju[:, :1])],
                           dim=1)
     w16 = ray_vectors(ro, normalize(rd_s))
-    u = chunk_uniforms(key, 0, MAX_BOUNCES, n, n)
-    zeros = torch.zeros((n, 16), device=dev)
-    res = {"traced_jittered": _fused_compare(ref_world, w16, zeros, u, MAX_BOUNCES, False, False)}
+    return w16, torch.zeros((n, 16), device=dev), chunk_uniforms(key, 0, MAX_BOUNCES, n, n)
+
+
+def kernel4_vs_plain(ref_world, dev):
+    """Kernel 4 at full size in three modes: the quality render's first
+    slab (one jittered sample traced in the kernel, 5 bounces), the
+    Cornell render's first batch (8 samples from the primary rows, 4
+    bounces) and the Cornell step's emit_idx pass (one sample)."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
+    from pathtracerap_tpu_torch.kernels.megakernel import primary_pack
+    from pathtracerap_tpu_torch.kernels.trace import ray_vectors, trace_pallas
+    from pathtracerap_tpu_torch.ops.math import normalize
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+    from pathtracerap_tpu_torch.ops.rng import chunk_uniforms, prng_key
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+
+    key = prng_key(0, dev)
+    res = {"traced_jittered": _fused_compare(ref_world, *quality_slab(dev), MAX_BOUNCES, False,
+                                             False)}
 
     world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
     ro, rd = generate_rays(CameraConfig(**CORNELL_CAMERA), CORNELL_RES, device=dev)
@@ -1208,8 +1255,388 @@ def pallas_vs_cpu(dev):
     return res
 
 
-def phase(name: str, res) -> None:
-    print(f"{name}: {json.dumps(res)}", flush=True)
+def _equal_live(a, b, live) -> bool:
+    import torch
+
+    return bool(torch.equal(a[live], b[live]))
+
+
+def debug_vs_fast(world, dev):
+    """Kernels 1, 2 and 4 in their debug form (the explicit det == 0 mask
+    of PTAP_DEBUG=1) against their fast form: at the main paths' shapes
+    (the 800,000 primaries, the 524,288-ray bounce-1 wavefront, the quality
+    slab) and on the degenerate rays of tests/test_debug_mode.py.  Equal
+    t, index and state on live rays; times of both forms."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.kernels import megakernel as MK
+    from pathtracerap_tpu_torch.kernels import trace as TT
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+    from pathtracerap_tpu_torch.utils.debug import degenerate_rays
+
+    res = {}
+    dro, drd = degenerate_rays(world)
+    ro, rd = generate_rays(CameraConfig(), RESOLUTION, device=dev)
+    for name, (r_o, r_d) in (("trace_list", (ro, rd)), ("trace_list_degenerate", (dro, drd))):
+        w16, lists = TT.primary_inputs(world, r_o, r_d)
+        live = w16[:, 10] > 0
+
+        def kern(debug, w16=w16, lists=lists):
+            return TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block,
+                                        debug)
+
+        (t_f, i_f), (t_d, i_d) = kern(False), kern(True)
+        same = _equal_live(t_f, t_d, live) and _equal_live(i_f, i_d, live)
+        check(same, f"{name}: debug and fast forms equal on live rays")
+        res[name] = {"rays": int(live.sum().item()), "equal": same,
+                     "hits": int((i_d[live] >= 0).sum().item())}
+        if name == "trace_list":
+            res[name].update(ms=cuda_ms(lambda: kern(False)), debug_ms=cuda_ms(lambda: kern(True)))
+
+    pack, u_b, lists, unit, ray_tile = bounce1_wavefront(world, dev)
+    degen = torch.cat([dro, drd, torch.ones_like(dro), torch.full_like(dro[:, :1], 4.0)], dim=1)
+    degen = torch.cat([degen, degen.new_zeros(ray_tile - degen.shape[0], 10)])
+    deg_lists, deg_unit = MK.bounce_lists(world, TT._slab_margin(world.block_aabb), degen, ray_tile)
+    cases = (("bounce", (pack, u_b, lists, unit)),
+             ("bounce_degenerate", (degen, u_b[:ray_tile], deg_lists, deg_unit)))
+    for name, (pk, u, ls, un) in cases:
+        live = pk[:, 9] > 0
+
+        def kern(debug, pk=pk, u=u, ls=ls, un=un):
+            return MK.bounce(pk, u, ls, un, world, ray_tile, True, debug)
+
+        (o_f, i_f), (o_d, i_d) = kern(False), kern(True)
+        same = _equal_live(o_f, o_d, live) and _equal_live(i_f, i_d, live)
+        check(same, f"{name}: debug and fast forms equal on live rays")
+        res[name] = {"rays": int(live.sum().item()), "equal": same,
+                     "hits": int((i_d[live] >= 0).sum().item())}
+        if name == "bounce":
+            res[name].update(ms=cuda_ms(lambda: kern(False)), debug_ms=cuda_ms(lambda: kern(True)))
+
+    w16, prim, u = quality_slab(dev)
+    w_deg = TT.ray_vectors(dro, TT.normalize(drd))
+    w_deg = torch.cat([w_deg, w_deg.new_zeros(TT.RAY_TILE - w_deg.shape[0], 16)])
+    cases = (("sample_fused", (w16, prim, u)),
+             ("sample_fused_degenerate", (w_deg, prim[:TT.RAY_TILE], u[:TT.RAY_TILE])))
+    for name, (w, pr, uu) in cases:
+        def kern(debug, w=w, pr=pr, uu=uu):
+            return MK.sample_fused(w, pr, uu, world, MAX_BOUNCES, False, False, emit_idx=True,
+                                   debug=debug)
+
+        (c_f, i_f), (c_d, i_d) = kern(False), kern(True)
+        same = bool(torch.equal(c_f, c_d) and torch.equal(i_f, i_d))
+        check(same, f"{name}: debug and fast forms equal")
+        res[name] = {"rays": w.shape[0], "equal": same, "hits": int((i_d > 0).sum().item())}
+        if name == "sample_fused":
+            def run(debug):
+                return MK.sample_fused(w16, prim, u, world, MAX_BOUNCES, False, False, debug=debug)
+
+            res[name].update(ms=cuda_ms(lambda: run(False)), debug_ms=cuda_ms(lambda: run(True)))
+    return res
+
+
+def _prof_bound(variant: str, k: int, n: int, n_bytes: float) -> dict:
+    """The least time for one launch of the parts kernel: the product (bf16
+    passes on the tensor cores' peak, f32 on the f32 peak) plus the min over
+    every product (mm_*) or the accept chain and min per (ray, triangle)."""
+    cols = 4 * PROF_TB * PROF_NB
+    passes = 1 if variant in ("mm_f32", "mm_bf16") else 3
+    product = 2.0 * n * k * cols * passes
+    rest = float(n * cols) if variant.startswith("mm_") else ACCEPT_FLOPS * n * PROF_TB * PROF_NB
+    if variant == "mm_f32":
+        return bound(product + rest, n_bytes)
+    return bound(rest, n_bytes, bf16_flops=product)
+
+
+def _matmul_alone_ms(w, ops, dtype, passes: int) -> float:
+    """torch.matmul on the same operands, visit by visit into one (N, 4 *
+    TB) buffer, ``passes`` products a visit: the product alone, written to
+    memory, with neither the min nor the accept chain."""
+    import torch
+
+    a, b = w.to(dtype), ops.to(dtype)
+    buf = torch.empty((w.shape[0], 4 * PROF_TB), dtype=dtype, device=w.device)
+    cols = 4 * PROF_TB
+
+    def run():
+        for blk in range(PROF_NB):
+            for _ in range(passes):
+                torch.matmul(a, b[:, blk * cols:(blk + 1) * cols], out=buf)
+
+    ms = cuda_ms(run, 3)
+    del a, b, buf
+    return ms
+
+
+def prof_kernels_vs_plain(dev):
+    """P1 to P4 against their plain versions at the scripts' sizes (800,256
+    rays, tiles of 512, 8 visits of 2,048 columns; P3 at 512 x 512): the
+    kernel on every ray, the plain version on the first PLAIN_SLICE (P3, P4:
+    all).  Products within rtol 1e-5 on every ray, the accept chain and what
+    follows on 99.9 % of rays, P3 and P4 exact.  Times, bounds, and
+    torch.matmul's time on the same operands as context."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels import prof as KP
+    from pathtracerap_tpu_torch.scripts import prof_kernel_parts as P1
+    from pathtracerap_tpu_torch.scripts import prof_kernel_parts2 as P2
+    from pathtracerap_tpu_torch.scripts import prof_mega_sweep as P4
+    from pathtracerap_tpu_torch.scripts import prof_r5_shade as P3
+
+    res = {}
+    out_bytes = PROF_N * 4
+
+    def compare(name, kern, plain, product: bool, bnd, library=None, library_call=None):
+        o, ref = kern(), plain()
+        torch.cuda.synchronize()
+        o = o[:ref.shape[0]]
+        close = torch.isclose(o, ref, rtol=PROF_RTOL, atol=0.0).float().mean().item()
+        need = 1.0 if product else PROF_CHAIN_SHARE
+        check(close >= need, f"{name}: {close} of rays within rtol {PROF_RTOL} (>= {need})")
+        r = {"plain_rays": ref.shape[0], "close_share": close,
+             "us_per_visit": None, "us_per_tile": None,
+             "bit_equal_share": (o.view(torch.int32) == ref.view(torch.int32)).float().mean().item(),
+             "max_abs_err": (o - ref).abs().max().item(),
+             "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 3)}
+        r.update(bnd)
+        r["matmul_alone_ms"] = library
+        r["library_ms"] = None if library_call is None else cuda_ms(library_call)
+        tiles = PROF_N // PROF_R
+        r["us_per_tile"] = r["ms"] * 1e3 / tiles
+        if name not in ("empty", "empty_with_ops"):
+            r["us_per_visit"] = r["ms"] * 1e3 / (tiles * PROF_NB)
+        res[name] = r
+
+    w, ops, attr = P1.inputs(dev)
+    sl = PLAIN_SLICE
+    n_bytes = nbytes(w, ops, attr) + out_bytes
+    mm = {"bf16": _matmul_alone_ms(w, ops, torch.bfloat16, 1),
+          "f32": _matmul_alone_ms(w, ops, torch.float32, 1)}
+    for v in P1.VARIANTS:
+        lib = mm["f32"] if v == "mm_f32" else mm["bf16"] * (1 if v == "mm_bf16" else 3)
+        compare(v, lambda v=v: P1.run_kernel(v, w, ops, attr),
+                lambda v=v: KP.parts_plain(v, w[:sl], ops, attr, PROF_R, PROF_TB, PROF_NB),
+                v.startswith("mm_"), _prof_bound(v, 16, PROF_N, n_bytes), lib)
+    del w, ops, attr
+    for variant, k in P2.RUNS:
+        if variant in ("empty", "mm_bf16"):  # the same launches as P4's and P1's
+            continue
+        w, ops = P2.inputs(dev, k)
+        nb_ = nbytes(w, ops) + out_bytes
+        compare(variant, lambda: P2.run(variant, w, ops),
+                lambda: KP.parts_plain("mm_bf16", w[:sl], ops, None, PROF_R, PROF_TB, PROF_NB),
+                True, _prof_bound("mm_bf16", k, PROF_N, nb_),
+                _matmul_alone_ms(w, ops, torch.bfloat16, 1))
+        del w, ops
+    w, ops = P4.empty_inputs(dev)
+    for with_ops in (True, False):
+        name = "empty_with_ops" if with_ops else "empty"
+        # a strided read of one 32-byte sector per 64-byte row, the column written
+        # the library call is the one PyTorch call that computes out = w[:, 0]
+        compare(name, lambda: KP.empty(w, PROF_R, ops if with_ops else None),
+                lambda: KP.empty_plain(w), True, bound(0.0, PROF_N * 32 + out_bytes),
+                library_call=lambda: w[:, 0].contiguous())
+        check(res[name]["bit_equal_share"] == 1.0, f"{name}: exact")
+    del w, ops
+    x, bases = P3.argmin_case(dev)
+    o, ref = KP.argmin_int(x, bases), KP.argmin_int_plain(x, bases)
+    check(bool(torch.equal(o, ref)), "prof_argmin: exact")
+    r = {"rows": x.shape[0], "equal": True, "max_abs_err": 0.0,
+         "ms": cuda_ms(lambda: KP.argmin_int(x, bases)),
+         "plain_ms": cuda_ms(lambda: KP.argmin_int_plain(x, bases)),
+         "argmin_alone_ms": cuda_ms(lambda: torch.argmin(x, dim=1))}
+    r.update(bound(2.0 * x.numel(), nbytes(x, bases, o)))
+    res["argmin_int"] = r
+    return res
+
+
+def _stop_after_first_chunk():
+    """Patch the facade's render_accumulate so that a render stops after its
+    first chunk (whose checkpoint is written), as a killed process would."""
+    from pathtracerap_tpu_torch.render import wavefront
+    from pathtracerap_tpu_torch.utils import InjectedFault
+
+    real, calls = wavefront.render_accumulate, []
+
+    def first_only(*args, **kwargs):
+        if calls:
+            raise InjectedFault("stopped after the first chunk")
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    wavefront.render_accumulate = first_only
+    return lambda: setattr(wavefront, "render_accumulate", real)
+
+
+def _resume_case(scene, cfg, dev, path):
+    """An unbroken chunked render, the same render stopped after its first
+    chunk with a checkpoint, and its resumption: bit-equal images, with the
+    resumed render's launches."""
+    import torch
+
+    from pathtracerap_tpu_torch import Renderer
+    from pathtracerap_tpu_torch.utils import InjectedFault, load_checkpoint
+
+    r = Renderer(scene, cfg, device=dev)
+    r.render()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = r.render()
+    torch.cuda.synchronize()
+    res = {"engine": r.engine, "resolution": cfg.resolution, "spp": cfg.samples_per_pixel,
+           "chunk": cfg.samples_per_chunk, "bounces": cfg.max_bounces,
+           "unbroken_s": time.perf_counter() - t0}
+    if os.path.exists(path):
+        os.remove(path)
+    restore = _stop_after_first_chunk()
+    try:
+        r.render(checkpoint_path=path)
+        raise RuntimeError("the render was not stopped")
+    except InjectedFault:
+        pass
+    finally:
+        restore()
+    res["stopped_at"] = load_checkpoint(path).samples_done
+    check(res["stopped_at"] == cfg.samples_per_chunk, "the checkpoint holds the first chunk")
+    _zero_counts()
+    t0 = time.perf_counter()
+    resumed = r.render(checkpoint_path=path)
+    torch.cuda.synchronize()
+    res["resumed_s"] = time.perf_counter() - t0
+    res.update(_counts())
+    res["bit_equal"] = bool(torch.equal(resumed, full))
+    res["finished_at"] = load_checkpoint(path).samples_done
+    res["mean"] = resumed.mean().item()
+    check(res["bit_equal"], f"{r.engine}: the resumed render equals the unbroken one bit for bit")
+    check(res["finished_at"] == cfg.samples_per_pixel, "the last checkpoint holds every sample")
+    check(res["plain_calls"] == 0, "no plain version called in the resumed render")
+    return res
+
+
+def resume_render(dev):
+    """Checkpoint/resume through Renderer.render(checkpoint_path=...): the
+    reference scene at 1000x800 x 8 spp x 5 bounces in chunks of 4
+    (binned), and the Cornell box at 256x256 x 8 spp x 4 bounces in chunks
+    of 4 (fused)."""
+    from pathtracerap_tpu_torch import (
+        CameraConfig, RenderConfig, build_cornell_box_scene, build_reference_scene,
+    )
+
+    os.makedirs(WORK, exist_ok=True)
+    cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=RESUME_SPP,
+                       samples_per_chunk=RESUME_CHUNK, max_bounces=MAX_BOUNCES, engine="fused")
+    res = {"reference": _resume_case(build_reference_scene().to_device(dev), cfg, dev,
+                                     os.path.join(WORK, "reference.ckpt"))}
+    check(res["reference"]["engine"] == "binned" and res["reference"]["bounce_launches"] > 0,
+          "the reference scene resumes on the binned engine")
+    cfg = RenderConfig(resolution=CORNELL_RES, samples_per_pixel=RESUME_SPP,
+                       samples_per_chunk=RESUME_CHUNK, max_bounces=CORNELL_BOUNCES,
+                       engine="fused", camera=CameraConfig(**CORNELL_CAMERA))
+    res["cornell"] = _resume_case(build_cornell_box_scene().to_device(dev), cfg, dev,
+                                  os.path.join(WORK, "cornell.ckpt"))
+    check(res["cornell"]["engine"] == "fused" and res["cornell"]["sample_fused_launches"] > 0,
+          "the Cornell box resumes on the fused engine")
+    return res
+
+
+def metrics_and_profile(dev):
+    """The main-path render (in chunks of 8 samples) with a MetricsLogger:
+    its chunk lines and live-ray curve; the same render at PROFILE_SPP
+    samples under profile_trace: the trace file and the annotate names in
+    it; device_memory_report()."""
+    import torch
+
+    from pathtracerap_tpu_torch import RenderConfig, Renderer, build_reference_scene
+    from pathtracerap_tpu_torch.utils import MetricsLogger, profile_trace
+    from pathtracerap_tpu_torch.utils.profiling import device_memory_report
+
+    cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=SPP, samples_per_chunk=8,
+                       max_bounces=MAX_BOUNCES, engine="fused")
+    r = Renderer(build_reference_scene().to_device(dev), cfg, device=dev)
+    stream = io.StringIO()
+    log = MetricsLogger(cfg, stream=stream)
+    _zero_counts()
+    img = r.render(metrics=log)
+    torch.cuda.synchronize()
+    m = log.finalize(SPP)
+    check(m.device == torch.cuda.get_device_name(dev), "the metrics name the render's card")
+    res = {"chunks": log.chunks, "live_ray_curve": log.live_ray_curve, "device": m.device,
+           "metric_lines": stream.getvalue().count("[metrics]")}
+    res.update(_counts())
+    check(len(log.chunks) == SPP // 8, "one metrics line per chunk")
+    curve = log.live_ray_curve
+    check(len(curve) == MAX_BOUNCES and curve[0] == 1.0
+          and all(a >= b for a, b in zip(curve, curve[1:])), "the live-ray curve decays from 1")
+    check(res["bounce_launches"] > 0 and res["plain_calls"] == 0, "kernels on the metered render")
+    check(bool(torch.isfinite(img).all()), "the metered image is finite")
+
+    trace_dir = os.path.join(WORK, "profile")
+    for old in glob.glob(os.path.join(trace_dir, "trace_*.json")):
+        os.remove(old)
+    r = Renderer(r.scene, dataclasses.replace(cfg, samples_per_pixel=PROFILE_SPP), device=dev)
+    r.render()  # warm-up
+    t0 = time.perf_counter()
+    with profile_trace(trace_dir) as prof:
+        r.render()
+        torch.cuda.synchronize()
+    res["profiled_s"] = time.perf_counter() - t0
+    (path,) = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = ("trace_primary", "shade", "sort", "bounce", "accumulate")
+    res["annotate_counts"] = {n: sum(1 for e in events if e.get("name") == n) for n in names}
+    res["trace_mb"] = os.path.getsize(path) / 1e6
+    res["device_kernel_events"] = sum(1 for e in events if e.get("cat") == "kernel")
+    res["device_ms_by_kernel"] = {
+        e.key: e.device_time_total / 1e3 for e in sorted(
+            prof.key_averages(), key=lambda e: -e.device_time_total)[:6]}
+    check(all(v > 0 for v in res["annotate_counts"].values()), "every annotate name in the trace")
+    check(res["device_kernel_events"] > 0, "the trace holds the card's kernels")
+    res["memory"] = device_memory_report()
+    check(res["memory"]["cuda:0"]["bytes_limit"] > 0, "device_memory_report reads the card")
+    return res
+
+
+def prof_scripts(dev):
+    """The four profiling scripts' main() at full size, their printed lines
+    kept; the launches of P1 to P4 are counted over them."""
+    from pathtracerap_tpu_torch.kernels import prof as KP
+    from pathtracerap_tpu_torch.scripts import (
+        prof_kernel_parts, prof_kernel_parts2, prof_mega_sweep, prof_r5_shade,
+    )
+
+    res = {}
+    _zero_counts()
+    for mod in (prof_kernel_parts, prof_kernel_parts2, prof_r5_shade, prof_mega_sweep):
+        name = mod.__name__.rsplit(".", 1)[1]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main()
+        res[name] = {"seconds": time.perf_counter() - t0, "lines": buf.getvalue().splitlines(),
+                     "result": out}
+    res["launches"] = {
+        "parts": {f"{v}/K={k}{'/unrolled' if u else ''}": c
+                  for (v, k, u), c in KP.parts.variant_launches.items()},
+        "empty": {("with_ops" if o else "without_ops"): c
+                  for o, c in KP.empty.variant_launches.items()},
+        "argmin_int": KP.argmin_int.launches,
+    }
+    res.update(_counts())
+    check(res["plain_calls"] == 0, "no plain version called by the scripts")
+    check(res["prof_r5_shade"]["result"]["argmin_int_correct"], "P3 correct in its script")
+    check(KP.parts.variant_launches.keys() == KP.PARTS_CONFIGS and KP.empty.launches > 0
+          and KP.argmin_int.launches > 0, "every profiling kernel launched by the scripts")
+    return res
+
+
+_T0 = time.perf_counter()
+
+
+def phase(name: str, res: dict) -> None:
+    """Print a phase's result, with the seconds since the script started."""
+    print(f"{name}: {json.dumps({**res, 'at_s': time.perf_counter() - _T0})}", flush=True)
 
 
 def main() -> int:
@@ -1286,35 +1713,71 @@ def main() -> int:
     mega = megascene_render(dev)
     phase("megascene_render", mega)
     phase("pallas_vs_cpu", pallas_vs_cpu(dev))
+    phase("debug_vs_fast", debug_vs_fast(world, dev))
+    pk = prof_kernels_vs_plain(dev)
+    phase("prof_kernels_vs_plain", pk)
+    phase("resume_render", resume_render(dev))
+    phase("metrics_and_profile", metrics_and_profile(dev))
+    ps = prof_scripts(dev)
+    phase("prof_scripts", ps)
     check("jax" not in sys.modules, "jax was never imported")
 
     def entry(name, source, replaces, launches, k, max_abs_err=None):
-        return {
+        out = {
             "name": name, "route": "cuda", "source": f"pathtracerap_tpu_torch/csrc/{source}",
-            "replaces": f"pathtracerap_tpu/pallas/{replaces}", "launches": launches,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": k["max_abs_err"] if max_abs_err is None else max_abs_err,
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes a nearest hit
+            # no single PyTorch call computes a nearest hit, nor a profiling
+            # kernel's product together with its min or accept chain; the
+            # copy kernel's is w[:, 0].contiguous()
+            "library_ms": k.get("library_ms"),
         }
+        if k.get("matmul_alone_ms") is not None:
+            out["library_note"] = f"none (matmul alone: {k['matmul_alone_ms']} ms)"
+        return out
 
+    pallas = "pathtracerap_tpu/pallas/"
     k4q = k4["traced_jittered"]  # the quality render's launch, its main path
     kernels = [
-        entry("trace_list", "trace_list.cu", "trace.py:188", mp["trace_list_launches"], k1),
-        entry("bounce", "bounce.cu", "megakernel.py:1666", mp["bounce_launches"], k2),
-        entry("bounce_trace", "bounce_trace.cu", "megakernel.py:1846",
+        entry("trace_list", "trace_list.cu", pallas + "trace.py:188", mp["trace_list_launches"],
+              k1),
+        entry("bounce", "bounce.cu", pallas + "megakernel.py:1666", mp["bounce_launches"], k2),
+        entry("bounce_trace", "bounce_trace.cu", pallas + "megakernel.py:1846",
               ts["bounce_trace_launches"], k3),
-        entry("megakernel", "megakernel.cu", "megakernel.py:1206", qr["sample_fused_launches"],
-              k4q, max(m["max_abs_err"] for m in k4.values())),
+        entry("megakernel", "megakernel.cu", pallas + "megakernel.py:1206",
+              qr["sample_fused_launches"], k4q, max(m["max_abs_err"] for m in k4.values())),
         # the beyond-pack render's bounces are its launches: the bounce-1 wavefront's numbers
-        entry("nearest_hit", "nearest_hit.cu", "trace.py:54", bp["nearest_hit_launches"],
+        entry("nearest_hit", "nearest_hit.cu", pallas + "trace.py:54", bp["nearest_hit_launches"],
               k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict))),
         # the TPU kernels' streamed modes, at the megascene's 701 blocks
-        entry("trace_list_701_blocks", "trace_list.cu", "trace.py:222",
+        entry("trace_list_701_blocks", "trace_list.cu", pallas + "trace.py:222",
               mega["trace_list_launches"], mega["kernel1"]),
-        entry("bounce_701_blocks", "bounce.cu", "megakernel.py:954", mega["bounce_launches"],
-              mega["kernel2"]),
+        entry("bounce_701_blocks", "bounce.cu", pallas + "megakernel.py:954",
+              mega["bounce_launches"], mega["kernel2"]),
     ]
+    # the profiling kernels: their path is the scripts' main() (prof_scripts)
+    from pathtracerap_tpu_torch.kernels.prof import P1_VARIANTS, P2_VARIANTS
+
+    parts, empties = ps["launches"]["parts"], ps["launches"]["empty"]
+    for v in P1_VARIANTS:  # P2's mm_bf16 is the same launch as P1's
+        kernels.append(entry(f"prof_parts:{v}", "prof_parts.cu", "scripts/prof_kernel_parts.py:35",
+                             parts.get(f"{v}/K=16", 0), pk[v]))
+    for v, (k, unroll) in P2_VARIANTS.items():
+        if v != "mm_bf16":
+            kernels.append(entry(f"prof_parts:{v}", "prof_parts.cu",
+                                 "scripts/prof_kernel_parts2.py:33",
+                                 parts.get(f"mm_bf16/K={k}{'/unrolled' if unroll else ''}", 0),
+                                 pk[v]))
+    kernels.append(entry("prof_parts:empty", "prof_parts.cu",
+                         "scripts/prof_kernel_parts2.py:33, scripts/prof_mega_sweep.py:30",
+                         empties.get("without_ops", 0), pk["empty"]))
+    kernels.append(entry("prof_parts:empty_with_ops", "prof_parts.cu",
+                         "scripts/prof_mega_sweep.py:30", empties.get("with_ops", 0),
+                         pk["empty_with_ops"]))
+    kernels.append(entry("prof_argmin", "prof_argmin.cu", "scripts/prof_r5_shade.py:96",
+                         ps["launches"]["argmin_int"], pk["argmin_int"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -23,6 +23,11 @@ default the per-bounce ``pallas`` diff engine; with ``engine="fused"`` the
 binned deferred-trace forward (kernels 1 and 3) on multi-block scenes,
 kernel 4's ``emit_idx`` forward on single-block ones.  ``bench_suite``
 holds the benchmark suite's scenes and configs.
+
+``Renderer.render(seed, checkpoint_path=None, metrics=None)`` renders in
+chunks that checkpoint and resume bit for bit; ``utils`` holds the
+checkpoint, failure, metrics, profiling and debug (``PTAP_DEBUG=1``)
+helpers; ``scripts`` the profiling scripts with their kernels P1 to P4.
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,8 @@
 
 #include "shade.cuh"
 
+// Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
+template <bool Debug>
 __global__ void bounce_kernel(const float* __restrict__ state,  // (N, 10)
                               const float* __restrict__ uni,    // (N, 4)
                               const int* __restrict__ lists,    // (nt, list_w)
@@ -56,7 +58,7 @@ __global__ void bounce_kernel(const float* __restrict__ state,  // (N, 10)
     __syncthreads();
     stage_ops(sm, ops, 4 * attr_cols, id * unit, unit, tri_block);
     __syncthreads();
-    sweep(sm, unit, id * unit, r, best, best_idx);
+    sweep<Debug>(sm, unit, id * unit, r, best, best_idx);
   }
 
   Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
@@ -77,12 +79,13 @@ __global__ void bounce_kernel(const float* __restrict__ state,  // (N, 10)
 extern "C" int ptt_bounce(const float* state, const float* uni, const int* lists, int nt,
                           int list_w, int unit, int ray_tile, const float* ops,
                           const float* attr, int attr_cols, int tri_block, int parity,
-                          float* out, int* idx_out, void* stream) {
+                          float* out, int* idx_out, int debug, void* stream) {
   if (nt == 0) return (int)cudaSuccess;
   const size_t smem = (size_t)PTT_ROWS * unit * sizeof(float);
-  cudaError_t err = set_smem(bounce_kernel, smem);
+  auto kernel = debug ? bounce_kernel<true> : bounce_kernel<false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  bounce_kernel<<<nt, ray_tile, smem, (cudaStream_t)stream>>>(
+  kernel<<<nt, ray_tile, smem, (cudaStream_t)stream>>>(
       state, uni, lists, list_w, unit, ops, attr, attr_cols, tri_block, parity, out, idx_out);
   return (int)cudaGetLastError();
 }

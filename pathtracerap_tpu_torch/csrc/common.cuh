@@ -79,25 +79,32 @@ __device__ __forceinline__ float plane(const float* sm, int c, int width, const 
 }
 
 // Epsilon-guarded Moeller-Trumbore accept (Renderer.cpp:188-201); returns
-// t if accepted, PTT_F_MAX otherwise.
+// t if accepted, PTT_F_MAX otherwise.  Debug is the explicit-mask form of
+// PTAP_DEBUG=1 (pallas/megakernel.py:608-633): det == 0 is masked and the
+// reciprocal guarded, where the fast form lets IEEE inf/NaN fail the range
+// tests.  Both forms accept the same triangles; Debug = false compiles to
+// the fast form alone.
+template <bool Debug = false>
 __device__ __forceinline__ float accept_t(float s_ab, float s_bc, float s_ca, float num) {
   const float det = s_ab + s_bc + s_ca;
-  const float inv_det = 1.0f / det;
+  const bool parallel = Debug && det == 0.0f;
+  const float inv_det = 1.0f / (parallel ? 1.0f : det);
   const float t = num * inv_det;
   const float u = s_ca * inv_det;
   const float v = s_ab * inv_det;
-  const bool ok = (u >= PTT_NEG_EPS) && (v >= PTT_NEG_EPS) && (t >= PTT_NEG_EPS) &&
+  const bool ok = !parallel && (u >= PTT_NEG_EPS) && (v >= PTT_NEG_EPS) && (t >= PTT_NEG_EPS) &&
                   (u <= PTT_ONE_EPS) && (u + v <= PTT_ONE_EPS);
   return ok ? t : PTT_F_MAX;
 }
 
 // Sweep `width` staged triangles whose global indices start at g0,
 // keeping the lexicographic (t, index) best.
+template <bool Debug = false>
 __device__ __forceinline__ void sweep(const float* sm, int width, int g0, const RayVec& r,
                                       float& best, int& best_idx) {
   for (int c = 0; c < width; ++c) {
-    const float t = accept_t(side(sm, 0, c, width, r), side(sm, 1, c, width, r),
-                             side(sm, 2, c, width, r), plane(sm, c, width, r));
+    const float t = accept_t<Debug>(side(sm, 0, c, width, r), side(sm, 1, c, width, r),
+                                    side(sm, 2, c, width, r), plane(sm, c, width, r));
     const int g = g0 + c;
     if (t < best || (t == best && t < PTT_F_MAX && g < best_idx)) {
       best = t;

@@ -77,6 +77,8 @@ __device__ __forceinline__ bool box_reaches(const float* __restrict__ box, const
 
 }  // namespace
 
+// Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
+template <bool Debug>
 __global__ void __launch_bounds__(kFusedTile)
 sample_fused_kernel(const float* __restrict__ w16,    // (N, 16) [dir, o x dir, orig, -1, 1, 0...]
                     const float* __restrict__ prim,   // (N, 16) [t, n, mt, rgb, gn, idx+1, ri, 0..]
@@ -137,7 +139,7 @@ sample_fused_kernel(const float* __restrict__ w16,    // (N, 16) [dir, o x dir, 
             __syncthreads();  // the previous run's rows are no longer read
             stage_ops(sm, ops, ops_cols, g0, kSweepRun, tri_block);
             __syncthreads();
-            if (alive) sweep(sm, kSweepRun, g0, r, t, best_idx);
+            if (alive) sweep<Debug>(sm, kSweepRun, g0, r, t, best_idx);
           }
         }
         if (best_idx >= 0) a = read_attrs(attr, attr_cols, best_idx);
@@ -159,10 +161,11 @@ extern "C" int ptt_sample_fused(const float* w16, const float* prim, const float
                                 const float* attr, int attr_cols, const float* aabb,
                                 const float* margin, int n_blocks, int tri_block, int parity,
                                 int use_primary, int gated, float* out, int* idx_out,
-                                void* stream) {
+                                int debug, void* stream) {
   if (n == 0) return (int)cudaSuccess;
   const size_t smem = (size_t)PTT_ROWS * kSweepRun * sizeof(float);
-  sample_fused_kernel<<<n / kFusedTile, kFusedTile, smem, (cudaStream_t)stream>>>(
+  auto kernel = debug ? sample_fused_kernel<true> : sample_fused_kernel<false>;
+  kernel<<<n / kFusedTile, kFusedTile, smem, (cudaStream_t)stream>>>(
       w16, prim, uni, n, ns, max_bounces, ops, ops_cols, attr, attr_cols, aabb, margin,
       n_blocks, tri_block, parity, use_primary, gated, out, idx_out);
   return (int)cudaGetLastError();

@@ -20,6 +20,8 @@
 
 #include "common.cuh"
 
+// Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
+template <bool Debug>
 __global__ void trace_list_kernel(const float* __restrict__ w,      // (N, 16)
                                   const float* __restrict__ ops,    // (16, ops_cols)
                                   int ops_cols,
@@ -41,7 +43,7 @@ __global__ void trace_list_kernel(const float* __restrict__ w,      // (N, 16)
     __syncthreads();     // the previous block's rows are no longer read
     stage_ops(sm, ops, ops_cols, blk * tri_block, tri_block, tri_block);
     __syncthreads();
-    sweep(sm, tri_block, blk * tri_block, r, best, best_idx);
+    sweep<Debug>(sm, tri_block, blk * tri_block, r, best, best_idx);
   }
   t_out[ray] = best;
   idx_out[ray] = best_idx;
@@ -49,12 +51,13 @@ __global__ void trace_list_kernel(const float* __restrict__ w,      // (N, 16)
 
 extern "C" int ptt_trace_list(const float* w, const float* ops, int ops_cols, const int* lists,
                               int nt, int list_w, int ray_tile, int tri_block, float* t_out,
-                              int* idx_out, void* stream) {
+                              int* idx_out, int debug, void* stream) {
   if (nt == 0) return (int)cudaSuccess;
   const size_t smem = (size_t)PTT_ROWS * tri_block * sizeof(float);
-  cudaError_t err = set_smem(trace_list_kernel, smem);
+  auto kernel = debug ? trace_list_kernel<true> : trace_list_kernel<false>;
+  cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  trace_list_kernel<<<nt, ray_tile, smem, (cudaStream_t)stream>>>(
+  kernel<<<nt, ray_tile, smem, (cudaStream_t)stream>>>(
       w, ops, ops_cols, lists, list_w, tri_block, t_out, idx_out);
   return (int)cudaGetLastError();
 }

@@ -44,15 +44,19 @@ def _nvcc() -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ptt_trace_list.restype = i
-    lib.ptt_trace_list.argtypes = [p, p, i, p, i, i, i, i, p, p, p]
+    lib.ptt_trace_list.argtypes = [p, p, i, p, i, i, i, i, p, p, i, p]
     lib.ptt_bounce.restype = i
-    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p, p]
+    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p, i, p]
     lib.ptt_bounce_trace.restype = i
     lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, i, p, p, p]
     lib.ptt_sample_fused.restype = i
-    lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, p]
+    lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, i, p]
     lib.ptt_nearest_hit.restype = i
     lib.ptt_nearest_hit.argtypes = [p, p, p, p, i, p, p, i, i, i, p, p, p, p]
+    lib.ptt_prof_parts.restype = i
+    lib.ptt_prof_parts.argtypes = [p, i, i, i, p, i, p, i, i, i, i, i, p, p]
+    lib.ptt_prof_argmin.restype = i
+    lib.ptt_prof_argmin.argtypes = [p, i, i, p, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

@@ -36,6 +36,8 @@ from ..ops.plucker import _morton3
 from ..ops.rng import RNG_TILE, chunk_jitter_uniforms, chunk_uniforms
 from ..render.shade import RayState, shade
 from ..scene.types import WorldTriangles
+from ..utils.debug import resolve_debug
+from ..utils.profiling import annotate
 from . import _build
 from .trace import (
     RAY_TILE, _check, _slab_margin, _tile_block_lists, nearest_hit_fused_plain, ray_vectors,
@@ -56,6 +58,7 @@ SAMPLE_BATCH = 8  # samples per fused launch, parity camera
 FUSED_SLAB_TILES = 64  # fused facade slab, in 8192-ray RNG tiles
 GATE_BLOCKS = 8  # the fused sweep gates blocks on their AABB above this many
 SWEEP_RUN = 128  # triangles kernel 4 stages per shared-memory run
+FUSED_TILE = 256  # rays per thread block of kernel 4 (csrc/megakernel.cu kFusedTile)
 
 
 def use_sub_blocks(world: WorldTriangles) -> bool:
@@ -125,15 +128,17 @@ def _shade_pack(pack: torch.Tensor, hits: HitRecord, u: torch.Tensor, parity: bo
     return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1)
 
 
-def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, parity: bool):
+def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, parity: bool,
+                 debug: bool = False):
     """Plain version of kernel 2: one bounce of a (N, 10) ray-state pack
     with its (N, 4) uniforms.  Traces every real block, gathers the
     winner's attribute rows and shades with the kernel's math (rsqrt
     normalization, as the TPU kernel's ``_shade_inkernel_t``).  Returns
-    (new state, hit triangle index or -1)."""
+    (new state, hit triangle index or -1).  ``debug``: the explicit-mask
+    accept chain."""
     bounce_plain.calls += 1
     t, idx = nearest_hit_fused_plain(
-        _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block
+        _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block, debug
     )
     return _shade_pack(pack, _attr_hits(world, t, idx), u, parity), idx
 
@@ -149,18 +154,21 @@ def bounce(
     world: WorldTriangles,
     ray_tile: int,
     parity: bool,
+    debug: bool = None,
 ):
     """One binned bounce: nearest hit over each tile's worklist, then
     shading.  Returns (new state, hit triangle index or -1; -1 as well
-    for the rays of a tile with no live ray).  Launches kernel 2 for CUDA
-    tensors (counted in ``bounce.launches``), runs the plain version for
-    CPU ones."""
+    for the rays of a tile with no live ray).  ``debug`` selects the
+    explicit-mask accept chain (None: ``PTAP_DEBUG``).  Launches kernel 2
+    for CUDA tensors (counted in ``bounce.launches``), runs the plain
+    version for CPU ones."""
+    debug = resolve_debug(debug)
     n = pack.shape[0]
     nt, lw = lists.shape
     if n != nt * ray_tile:
         raise ValueError(f"{n} rays do not fill {nt} tiles of {ray_tile}")
     if pack.device.type == "cpu":
-        return bounce_plain(pack, u, world, parity)
+        return bounce_plain(pack, u, world, parity, debug)
     if pack.device.type != "cuda":
         raise ValueError(f"no kernel for device {pack.device}")
     if not 32 <= ray_tile <= 1024 or ray_tile % 32:
@@ -191,6 +199,7 @@ def bounce(
         ctypes.c_int(int(parity)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_bounce")
@@ -355,16 +364,23 @@ def render_samples_binned(
     key: torch.Tensor,
     n_samples: int,
     max_bounces: int,
+    sample_offset: int = 0,
     parity: bool = True,
     tile_base: int = 0,
+    debug: bool = None,
 ) -> torch.Tensor:
-    """Accumulate samples ``0 .. n_samples`` with per-bounce ray binning;
-    returns the (N, 3) contribution sums.  Parity camera only: the primary
-    hits are traced once and shared by every sample.
+    """Accumulate samples ``sample_offset .. sample_offset + n_samples``
+    with per-bounce ray binning; returns the (N, 3) contribution sums.
+    Parity camera only: the primary hits are traced once and shared by
+    every sample.
 
-    Samples go in groups of ``BINNED_SAMPLE_BATCH``, each group sorted as
-    one wavefront; every ray keeps its own (sample, pixel) uniform stream
-    through ``pix``, so grouping changes no bit of the result."""
+    Samples go in groups of ``BINNED_SAMPLE_BATCH`` from ``sample_offset``,
+    each group sorted as one wavefront, then the remainder one by one (JAX
+    ``megakernel.py:2208-2230``); every ray keeps its own (sample, pixel)
+    uniform stream through ``pix``, so grouping changes no bit of the
+    result.  ``debug``: kernels 1 and 2 in their explicit-mask form (None:
+    ``PTAP_DEBUG``)."""
+    debug = resolve_debug(debug)
     ray_tile = binned_ray_tile(world)
     n = ro.shape[0]
     dev = ro.device
@@ -377,34 +393,41 @@ def render_samples_binned(
         ro_p, rd_p = ro, rd_n
     n_pad = ro_p.shape[0]
     margin = _slab_margin(world.block_aabb)
-    hits0 = trace_pallas(world, ro_p, rd_p)
+    with annotate("trace_primary"):
+        hits0 = trace_pallas(world, ro_p, rd_p, debug=debug)
     lo, hi = scene_morton_bounds(world.block_aabb)
 
     acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
-    s0 = 0
+    s0 = sample_offset
     for ns in sample_groups(n_samples):
-        pack, u_flat = first_wavefront(
-            world, ro_p, rd_p, hits0, key, s0, ns, n, max_bounces, parity, tile_base
-        )
+        with annotate("shade"):
+            pack, u_flat = first_wavefront(
+                world, ro_p, rd_p, hits0, key, s0, ns, n, max_bounces, parity, tile_base
+            )
         pix = torch.arange(ns * n_pad, device=dev)
         for b in range(1, max_bounces):
-            pack, pix = sort_wavefront(pack, pix, lo, hi)
-            lists, unit = bounce_lists(world, margin, pack, ray_tile)
-            pack, _ = bounce(pack, u_flat[:, 4 * b:4 * b + 4][pix], lists, unit, world, ray_tile, parity)
-        contrib = torch.sqrt(torch.clamp(pack[:, 6:9], min=0.0))
-        acc = acc + contrib[inverse_permutation(pix)].reshape(ns, n_pad, 3).sum(dim=0)
+            with annotate("sort"):
+                pack, pix = sort_wavefront(pack, pix, lo, hi)
+                lists, unit = bounce_lists(world, margin, pack, ray_tile)
+            with annotate("bounce"):
+                pack, _ = bounce(pack, u_flat[:, 4 * b:4 * b + 4][pix], lists, unit, world,
+                                 ray_tile, parity, debug)
+        with annotate("accumulate"):
+            contrib = torch.sqrt(torch.clamp(pack[:, 6:9], min=0.0))
+            acc = acc + contrib[inverse_permutation(pix)].reshape(ns, n_pad, 3).sum(dim=0)
         s0 += ns
     return acc[:n]
 
 
-def render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces, parity=True):
+def render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces, sample_offset=0,
+                             parity=True, debug=None):
     """The facade's binned loop: ``BINNED_SLAB_TILES`` RNG tiles of rays per
     call, with the global RNG tile numbering ``tile_base = s0 // 8192``."""
     slab = BINNED_SLAB_TILES * RNG_TILE
     parts = [
         render_samples_binned(
             world, ro[s0:s0 + slab], rd[s0:s0 + slab], key, n_samples, max_bounces,
-            parity=parity, tile_base=s0 // RNG_TILE,
+            sample_offset=sample_offset, parity=parity, tile_base=s0 // RNG_TILE, debug=debug,
         )
         for s0 in range(0, ro.shape[0], slab)
     ]
@@ -436,7 +459,8 @@ def primary_pack(hits: HitRecord, idx1=None) -> torch.Tensor:
     )
 
 
-def _sample_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_primary: bool, live):
+def _sample_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_primary: bool, live,
+                  debug: bool):
     """One sample of kernel 4's plain version: (contribution (N, 3),
     index stream (N, max_bounces) int32)."""
     n = w16.shape[0]
@@ -459,7 +483,8 @@ def _sample_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_prima
             idx1 = prim[:, 11].to(torch.int32)
         else:
             t, idx = nearest_hit_fused_plain(
-                _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block
+                _ray_vectors(pack), world.fused_ops, world.block_aabb.shape[0], world.tri_block,
+                debug,
             )
             hits, idx1 = _attr_hits(world, t, idx), idx + 1
         cols.append(torch.where(alive, idx1, 0))
@@ -468,7 +493,7 @@ def _sample_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_prima
 
 
 def sample_fused_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_primary: bool,
-                       emit_idx: bool = False, live=None):
+                       emit_idx: bool = False, live=None, debug: bool = False):
     """Plain version of kernel 4.  Per sample: bounce 0 from the primary
     rows (``use_primary``) or traced, every later bounce traced over every
     real block, the winner's attribute rows gathered and shaded with the
@@ -476,11 +501,12 @@ def sample_fused_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_
     0))``, summed in sample order when ``u`` is (ns, N, 4 * max_bounces);
     with ``emit_idx`` also the (N, max_bounces) int32 stream of index + 1
     where the ray was live and hit, else 0.  ``live``, a list, receives
-    each (sample, bounce)'s count of live rays (0-d tensors)."""
+    each (sample, bounce)'s count of live rays (0-d tensors).  ``debug``:
+    the explicit-mask accept chain."""
     sample_fused_plain.calls += 1
     acc = idxs = None
     for us in (u if u.dim() == 3 else u[None]):
-        c, idxs = _sample_plain(w16, prim, us, world, max_bounces, parity, use_primary, live)
+        c, idxs = _sample_plain(w16, prim, us, world, max_bounces, parity, use_primary, live, debug)
         acc = c if acc is None else acc + c
     return (acc, idxs) if emit_idx else acc
 
@@ -497,12 +523,15 @@ def sample_fused(
     parity: bool,
     use_primary: bool,
     emit_idx: bool = False,
+    debug: bool = None,
 ):
     """Whole samples through kernel 4: every bounce, every real block.
     Returns the (N, 3) contribution (summed over the samples of a batch),
     and with ``emit_idx`` (one sample only) the (N, max_bounces) int32
-    index + 1 stream.  Launches kernel 4 for CUDA tensors (counted in
+    index + 1 stream.  ``debug`` selects the explicit-mask accept chain
+    (None: ``PTAP_DEBUG``).  Launches kernel 4 for CUDA tensors (counted in
     ``sample_fused.launches``), runs the plain version for CPU ones."""
+    debug = resolve_debug(debug)
     n = w16.shape[0]
     batched = u.dim() == 3
     if n % RAY_TILE:
@@ -510,7 +539,8 @@ def sample_fused(
     if emit_idx and batched:
         raise ValueError("emit_idx runs one sample per launch")
     if w16.device.type == "cpu":
-        return sample_fused_plain(w16, prim, u, world, max_bounces, parity, use_primary, emit_idx)
+        return sample_fused_plain(w16, prim, u, world, max_bounces, parity, use_primary, emit_idx,
+                                  debug=debug)
     if w16.device.type != "cuda":
         raise ValueError(f"no kernel for device {w16.device}")
     tb = world.tri_block
@@ -552,6 +582,7 @@ def sample_fused(
         ctypes.c_int(int(nb > GATE_BLOCKS)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr() if emit_idx else None),
+        ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_sample_fused")
@@ -569,20 +600,25 @@ def render_samples_fused(
     key: torch.Tensor,
     n_samples: int,
     max_bounces: int,
+    sample_offset: int = 0,
     parity: bool = True,
     tile_base: int = 0,
     jitter_step=None,
+    debug: bool = None,
 ) -> torch.Tensor:
-    """Accumulate samples ``0 .. n_samples`` through kernel 4; returns the
-    (N, 3) contribution sums (JAX ``render_samples_fused``).
+    """Accumulate samples ``sample_offset .. sample_offset + n_samples``
+    through kernel 4; returns the (N, 3) contribution sums (JAX
+    ``render_samples_fused``).
 
     Rays are padded to ``RAY_TILE``.  Without ``jitter_step`` the primary
     hits are traced once (kernel 1) and shared by every sample, which go
-    in batches of ``SAMPLE_BATCH`` per launch; the batch sums in sample
-    order, then adds to the total.  With ``jitter_step`` (pixel steps of
-    the quality camera) every sample moves the unnormalized directions by
-    its jitter, normalizes them and traces its primaries in the kernel,
-    one launch per sample."""
+    in batches of ``SAMPLE_BATCH`` per launch from ``sample_offset``; the
+    batch sums in sample order, then adds to the total.  With
+    ``jitter_step`` (pixel steps of the quality camera) every sample moves
+    the unnormalized directions by its jitter, normalizes them and traces
+    its primaries in the kernel, one launch per sample.  ``debug``: kernels
+    1 and 4 in their explicit-mask form (None: ``PTAP_DEBUG``)."""
+    debug = resolve_debug(debug)
     n = ro.shape[0]
     dev = ro.device
     rd_n = normalize(rd)
@@ -597,36 +633,38 @@ def render_samples_fused(
     acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
 
     if jitter_step is None:
-        prim = primary_pack(trace_pallas(world, ro_p, rd_p))
+        with annotate("trace_primary"):
+            prim = primary_pack(trace_pallas(world, ro_p, rd_p, debug=debug))
         w16 = ray_vectors(ro_p, rd_p)
-        for s0 in range(0, n_samples, SAMPLE_BATCH):
-            ns = min(SAMPLE_BATCH, n_samples - s0)
+        for s0 in range(sample_offset, sample_offset + n_samples, SAMPLE_BATCH):
+            ns = min(SAMPLE_BATCH, sample_offset + n_samples - s0)
             u = chunk_uniforms(key, range(s0, s0 + ns), max_bounces, n, n_pad, tile_base)
             u = u.reshape(ns, n_pad, 4 * max_bounces)
-            acc = acc + sample_fused(w16, prim, u, world, max_bounces, parity, True)
+            acc = acc + sample_fused(w16, prim, u, world, max_bounces, parity, True, debug=debug)
         return acc[:n]
 
     prim = torch.zeros((n_pad, 16), dtype=torch.float32, device=dev)
     zero = torch.zeros((n_pad, 1), dtype=torch.float32, device=dev)
-    for s in range(n_samples):
+    for s in range(sample_offset, sample_offset + n_samples):
         u = chunk_uniforms(key, s, max_bounces, n, n_pad, tile_base)
         ju = chunk_jitter_uniforms(key, s, n, n_pad, tile_base)
         # the jitter moves the unnormalized image-plane direction (pix - eye)
         rd_s = rd_raw + torch.cat([ju[:, 0:1] * jitter_step[0], ju[:, 1:2] * jitter_step[1], zero], 1)
         w = ray_vectors(ro_p, normalize(rd_s))
-        acc = acc + sample_fused(w, prim, u, world, max_bounces, parity, False)
+        acc = acc + sample_fused(w, prim, u, world, max_bounces, parity, False, debug=debug)
     return acc[:n]
 
 
-def render_accumulate_fused(world, ro, rd, key, n_samples, max_bounces, parity=True,
-                            jitter_step=None):
+def render_accumulate_fused(world, ro, rd, key, n_samples, max_bounces, sample_offset=0,
+                            parity=True, jitter_step=None, debug=None):
     """The facade's fused loop: ``FUSED_SLAB_TILES`` RNG tiles of rays per
     call, with the global RNG tile numbering ``tile_base = s0 // 8192``."""
     slab = FUSED_SLAB_TILES * RNG_TILE
     parts = [
         render_samples_fused(
             world, ro[s0:s0 + slab], rd[s0:s0 + slab], key, n_samples, max_bounces,
-            parity=parity, tile_base=s0 // RNG_TILE, jitter_step=jitter_step,
+            sample_offset=sample_offset, parity=parity, tile_base=s0 // RNG_TILE,
+            jitter_step=jitter_step, debug=debug,
         )
         for s0 in range(0, ro.shape[0], slab)
     ]

@@ -32,6 +32,7 @@ from .. import constants
 from ..ops.math import cross3, normalize
 from ..ops.plucker import hit_record
 from ..scene.types import WorldTriangles
+from ..utils.debug import resolve_debug
 from . import _build
 
 F_MAX = constants.FLOAT_MAX
@@ -149,32 +150,43 @@ def _group_sub_lists(lists: torch.Tensor, group: int) -> torch.Tensor:
     return g.reshape(nt, -1)
 
 
-def accept_nearest(s: torch.Tensor, tri_block: int):
+def accept_nearest(s: torch.Tensor, tri_block: int, debug: bool = False):
     """Epsilon-guarded Moeller-Trumbore accept and nearest hit from the
     side/plane products ``s`` (R, nb * 4 * TB) of ``nb`` consecutive blocks
     starting at block 0.  Returns (t (R,), idx (R,) int64, -1 on a miss);
-    exact-t ties go to the lowest index."""
+    exact-t ties go to the lowest index.  ``debug`` is the explicit-mask
+    form of ``PTAP_DEBUG=1`` (:mod:`..utils.debug`): it masks ``det == 0``
+    where the fast form lets inf/NaN fail the range tests; both accept the
+    same triangles."""
     r = s.shape[0]
     s = s.reshape(r, -1, 4, tri_block)
     s_ab, s_bc, s_ca, num = s[:, :, 0], s[:, :, 1], s[:, :, 2], s[:, :, 3]
     det = s_ab + s_bc + s_ca
-    # det == 0 gives inf/NaN in u, v, t, which every range test rejects
-    inv_det = 1.0 / det
+    if debug:
+        parallel = det == 0.0
+        inv_det = 1.0 / torch.where(parallel, 1.0, det)
+    else:
+        # det == 0 gives inf/NaN in u, v, t, which every range test rejects
+        inv_det = 1.0 / det
     t = num * inv_det
     u = s_ca * inv_det
     v = s_ab * inv_det
     accept = (
         (u >= -EPS) & (v >= -EPS) & (t >= -EPS) & (u <= 1.0 + EPS) & (u + v <= 1.0 + EPS)
     )
+    if debug:
+        accept = accept & ~parallel
     best, arg = torch.where(accept, t, F_MAX).reshape(r, -1).min(dim=1)
     return best, torch.where(best < F_MAX, arg, -1)
 
 
-def nearest_hit_fused_plain(w: torch.Tensor, fused_ops: torch.Tensor, n_blocks: int, tri_block: int):
+def nearest_hit_fused_plain(w: torch.Tensor, fused_ops: torch.Tensor, n_blocks: int, tri_block: int,
+                            debug: bool = False):
     """Plain version of kernel 1: every real block, every ray.  Returns
     (t (N,) f32, idx (N,) int32).  The blocks are swept in chunks in index
     order, a chunk's best replacing the running one only on a strictly
-    smaller t: the result of one sweep over all of them."""
+    smaller t: the result of one sweep over all of them.  ``debug``: the
+    explicit-mask accept chain (:func:`accept_nearest`)."""
     nearest_hit_fused_plain.calls += 1
     cols = 4 * tri_block
     chunk_cols = min(n_blocks, PLAIN_BLOCK_CHUNK) * cols
@@ -186,7 +198,7 @@ def nearest_hit_fused_plain(w: torch.Tensor, fused_ops: torch.Tensor, n_blocks: 
         best_idx = torch.full((wr.shape[0],), -1, dtype=torch.int64, device=w.device)
         for b0 in range(0, n_blocks, PLAIN_BLOCK_CHUNK):
             b1 = min(b0 + PLAIN_BLOCK_CHUNK, n_blocks)
-            t, idx = accept_nearest(wr @ fused_ops[:, b0 * cols:b1 * cols], tri_block)
+            t, idx = accept_nearest(wr @ fused_ops[:, b0 * cols:b1 * cols], tri_block, debug)
             better = t < best
             best_idx = torch.where(better, idx + b0 * tri_block, best_idx)
             best = torch.where(better, t, best)
@@ -214,16 +226,20 @@ def nearest_hit_fused(
     block_list: torch.Tensor,  # (nt, nb) int32 worklists
     ray_tile: int,
     tri_block: int,
+    debug: bool = None,
 ):
     """Returns (t (N,), idx (N,) int32, -1 on a miss): the nearest accepted
-    triangle per ray.  Launches kernel 1 for CUDA tensors (counted in
-    ``nearest_hit_fused.launches``), runs the plain version for CPU ones."""
+    triangle per ray.  ``debug`` selects the explicit-mask accept chain
+    (None: the ``PTAP_DEBUG`` environment variable).  Launches kernel 1 for
+    CUDA tensors (counted in ``nearest_hit_fused.launches``), runs the
+    plain version for CPU ones."""
+    debug = resolve_debug(debug)
     n = w.shape[0]
     nt, nb = block_list.shape
     if n != nt * ray_tile:
         raise ValueError(f"{n} rays do not fill {nt} tiles of {ray_tile}")
     if w.device.type == "cpu":
-        return nearest_hit_fused_plain(w, fused_ops, nb, tri_block)
+        return nearest_hit_fused_plain(w, fused_ops, nb, tri_block, debug)
     if w.device.type != "cuda":
         raise ValueError(f"no kernel for device {w.device}")
     if not 32 <= ray_tile <= 1024 or ray_tile % 32:
@@ -247,6 +263,7 @@ def nearest_hit_fused(
         ctypes.c_int(tri_block),
         ctypes.c_void_p(t.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_trace_list")
@@ -438,18 +455,21 @@ def dense_inputs(ro, rd, alive=None):
 
 
 def trace_pallas(world: WorldTriangles, ro, rd, alive=None, cull: bool = True,
-                 return_idx: bool = False):
+                 return_idx: bool = False, debug: bool = None):
     """Full-scene nearest hit; the same result contract as
     :func:`..ops.plucker.trace_mxu`.  A world with a fused pack is traced
     through its worklists (kernel 1) when ``cull``; a world without one,
     or ``cull=False``, through the dense sweep (kernel 5).  ``alive`` (N,)
     bool keeps dead lanes out of the culling.  With ``return_idx`` it
     returns ``(HitRecord, idx)``, idx (N,) int32 the hit triangle's baked
-    index (0 on a miss)."""
+    index (0 on a miss).  ``debug`` switches kernel 1 to the explicit-mask
+    accept chain (None: ``PTAP_DEBUG``; kernel 5 has no debug form, as in
+    JAX)."""
     n = ro.shape[0]
     if cull and world.fused_ops is not None:
         w16, block_list = primary_inputs(world, ro, rd, alive)
-        t, idx = nearest_hit_fused(w16, world.fused_ops, block_list, RAY_TILE, world.tri_block)
+        t, idx = nearest_hit_fused(w16, world.fused_ops, block_list, RAY_TILE, world.tri_block,
+                                   debug)
     else:
         w, wo = dense_inputs(ro, rd, alive)
         t, idx = nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,

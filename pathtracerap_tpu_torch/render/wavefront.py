@@ -18,10 +18,18 @@ after the other.  The port traces the whole image's wavefront in one
 launch a bounce and keeps only the tiles' RNG numbering, so every pixel
 draws JAX's stream.  The parity DDA engine raises ``NotImplementedError``
 naming its ROADMAP item.
+
+``Renderer.render`` renders in chunks of ``samples_per_chunk`` samples
+(``render_accumulate``'s ``sample_offset`` and ``init_accum``), saves a
+checkpoint after each chunk and resumes from one bit for bit, reports to a
+:class:`..utils.metrics.MetricsLogger`, and under ``PTAP_DEBUG=1`` checks
+the kernels' invariants on a slice of primary rays first
+(:func:`..utils.debug.checked_trace`).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -34,6 +42,9 @@ from ..kernels.trace import trace_pallas
 from ..ops.plucker import bake_world_triangles, trace_mxu
 from ..ops.rng import chunk_jitter_uniforms, chunk_uniforms, prng_key
 from ..scene.types import SceneDevice
+from ..utils.checkpoint import RenderCheckpoint, load_checkpoint, save_checkpoint
+from ..utils.debug import checked_trace, debug_enabled
+from ..utils.profiling import annotate
 from .camera import generate_rays, jitter_step
 from .shade import RayState, gather_contribution, shade
 
@@ -89,16 +100,20 @@ def render_sample(
     tile, tiles numbered from ``tile_base``, as JAX draws them tile by
     tile."""
     n = ro.shape[0]
-    u = chunk_uniforms(key, sample_index, max_bounces, n, n, tile_base, rng_tile=tile_size)
+    with annotate("rng"):
+        u = chunk_uniforms(key, sample_index, max_bounces, n, n, tile_base, rng_tile=tile_size)
     state = RayState.primary(ro, rd, max_bounces)
     for b in range(max_bounces):
-        if b == 0 and primary_hits is not None:
-            hits = primary_hits
-        else:
-            hits = tracer(state.orig, state.dir, alive=state.remaining > 0)
-        # column block b holds depth max_bounces - b (Renderer.cpp:435)
-        state = shade(state, hits, u[:, 4 * b:4 * b + 4], parity=parity)
-    return gather_contribution(state)
+        with annotate("trace" if b else "trace_primary"):
+            if b == 0 and primary_hits is not None:
+                hits = primary_hits
+            else:
+                hits = tracer(state.orig, state.dir, alive=state.remaining > 0)
+        with annotate("shade"):
+            # column block b holds depth max_bounces - b (Renderer.cpp:435)
+            state = shade(state, hits, u[:, 4 * b:4 * b + 4], parity=parity)
+    with annotate("accumulate"):
+        return gather_contribution(state)
 
 
 def _render_tile(
@@ -112,9 +127,11 @@ def _render_tile(
     parity: bool,
     jitter_step=None,
     tile_size: int = DEFAULT_TILE,
+    sample_offset: int = 0,
 ) -> torch.Tensor:
-    """All samples of a wavefront whose RNG tiles start at ``tile_base``;
-    returns the (n, 3) contribution sums.  It does the work of JAX's
+    """Samples ``sample_offset .. sample_offset + n_samples`` of a
+    wavefront whose RNG tiles start at ``tile_base``; returns the (n, 3)
+    contribution sums.  It does the work of JAX's
     ``render_ray_array`` and ``_render_tile`` together, on the whole
     wavefront at once.  Without ``jitter_step`` the primary hits are traced
     once and shared (the reference's first-intersection cache,
@@ -124,7 +141,7 @@ def _render_tile(
     n = ro.shape[0]
     primary = tracer(ro, rd) if jitter_step is None else None
     acc = torch.zeros((n, 3), dtype=torch.float32, device=ro.device)
-    for s in range(n_samples):
+    for s in range(sample_offset, sample_offset + n_samples):
         rd_s = rd
         if jitter_step is not None:
             ju = chunk_jitter_uniforms(key, s, n, n, tile_base, rng_tile=tile_size)
@@ -148,11 +165,15 @@ def render_accumulate(
     max_bounces: int,
     engine: str = "mxu",
     parity: bool = True,
+    sample_offset: int = 0,
+    init_accum: Optional[torch.Tensor] = None,
     world=None,
     tile_size: int = DEFAULT_TILE,
 ) -> torch.Tensor:
-    """Accumulate ``n_samples`` sample iterations on the scene's device;
-    returns the (N, 3) contribution sums.  ``world`` is an optional
+    """Accumulate samples ``sample_offset .. sample_offset + n_samples`` on
+    the scene's device; returns the (N, 3) contribution sums, plus
+    ``init_accum`` when given (added after the chunk's sum, as JAX adds
+    it, for checkpoint/resume chunking).  ``world`` is an optional
     pre-baked :class:`..scene.types.WorldTriangles`; ``tile_size`` is the
     per-bounce engines' RNG tile."""
     ro, rd = generate_rays(camera, resolution, device=scene.device)
@@ -162,14 +183,17 @@ def render_accumulate(
             world = bake_world_triangles(scene)
         engine = effective_engine(engine, world, step is not None)
     if engine == "binned":
-        return render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces, parity=parity)
-    if engine == "fused":
-        return render_accumulate_fused(
-            world, ro, rd, key, n_samples, max_bounces, parity=parity, jitter_step=step
-        )
-    tracer = _make_tracer(scene, engine, world=world)
-    return _render_tile(tracer, ro, rd, 0, key, n_samples, max_bounces, parity,
-                        jitter_step=step, tile_size=tile_size)
+        acc = render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces,
+                                       sample_offset=sample_offset, parity=parity)
+    elif engine == "fused":
+        acc = render_accumulate_fused(world, ro, rd, key, n_samples, max_bounces,
+                                      sample_offset=sample_offset, parity=parity,
+                                      jitter_step=step)
+    else:
+        tracer = _make_tracer(scene, engine, world=world)
+        acc = _render_tile(tracer, ro, rd, 0, key, n_samples, max_bounces, parity,
+                           jitter_step=step, tile_size=tile_size, sample_offset=sample_offset)
+    return acc if init_accum is None else acc + init_accum
 
 
 class Renderer:
@@ -191,18 +215,75 @@ class Renderer:
                 + _MISSING.get(self.engine, "not an engine of this package")
             )
 
-    def render(self, seed: Optional[int] = None) -> torch.Tensor:
+    def render(
+        self,
+        seed: Optional[int] = None,
+        checkpoint_path: Optional[str] = None,
+        metrics=None,
+    ) -> torch.Tensor:
         """Full render; returns the (H, W, 3) float image (accumulated
-        contributions / n_samples, pre-quantization) on the device."""
+        contributions / n_samples, pre-quantization) on the device.
+
+        The samples go in chunks of ``samples_per_chunk`` (all at once when
+        0).  With ``checkpoint_path`` the accumulation is saved after every
+        chunk (atomic writes) and a render with the same config and seed
+        resumes from it; the stateless per-(sample, ray, depth) RNG makes
+        the resumed image equal to an unbroken chunked render bit for bit.
+        A checkpoint of another config or seed is refused (``ValueError``).
+        ``metrics`` (a :class:`..utils.metrics.MetricsLogger`) receives the
+        live-ray curve of a fresh render and each chunk's wall time."""
         cfg = self.config
         seed = cfg.seed if seed is None else seed
+        key = prng_key(seed, device=self.device)
         w, h = cfg.resolution
-        acc = render_accumulate(
-            self.scene, prng_key(seed, device=self.device), cfg.camera, cfg.resolution,
-            cfg.samples_per_pixel, cfg.max_bounces, engine=self.engine, parity=cfg.parity,
-            world=self.world,
-        )
-        return acc.reshape(h, w, 3) / cfg.samples_per_pixel
+
+        if debug_enabled() and self.world is not None and self.world.fused_ops is not None:
+            # PTAP_DEBUG=1: check the kernel invariants on a slice of
+            # primary rays before committing to the full render
+            ro_d, rd_d = generate_rays(cfg.camera, cfg.resolution, device=self.device)
+            checked_trace(self.world, ro_d[:8192], rd_d[:8192])
+        chunk = cfg.samples_per_chunk or cfg.samples_per_pixel
+        accum = None
+        done = 0
+
+        if checkpoint_path:
+            ck = load_checkpoint(checkpoint_path)
+            if ck is not None:
+                if ck.config != cfg.to_dict() or ck.seed != seed:
+                    raise ValueError(
+                        f"checkpoint {checkpoint_path} was written by a "
+                        "different render config/seed; refusing to resume"
+                    )
+                accum = torch.as_tensor(ck.accum, device=self.device)
+                done = ck.samples_done
+
+        if metrics is not None:
+            metrics.device = self.device
+        if metrics is not None and getattr(metrics, "enabled", True) and done == 0:
+            from .diagnostics import live_ray_curve
+
+            metrics.record_live_curve(live_ray_curve(self.scene, cfg, key))
+
+        while done < cfg.samples_per_pixel:
+            step = min(chunk, cfg.samples_per_pixel - done)
+            t0 = time.perf_counter()
+            accum = render_accumulate(
+                self.scene, key, cfg.camera, cfg.resolution, step, cfg.max_bounces,
+                engine=self.engine, parity=cfg.parity, sample_offset=done, init_accum=accum,
+                world=self.world,
+            )
+            done += step
+            if checkpoint_path or metrics:
+                accum_host = accum.cpu().numpy()  # also syncs for timing
+                if metrics:
+                    metrics.chunk_done(step, time.perf_counter() - t0)
+                if checkpoint_path:
+                    save_checkpoint(
+                        checkpoint_path,
+                        RenderCheckpoint(accum=accum_host, samples_done=done, seed=seed,
+                                         config=cfg.to_dict()),
+                    )
+        return accum.reshape(h, w, 3) / cfg.samples_per_pixel
 
     def render_to_bmp(self, path: str, seed: Optional[int] = None) -> torch.Tensor:
         image = self.render(seed=seed)

@@ -95,7 +95,9 @@ class SceneHost:
             mdls.append(np.full(n + pad, i, dtype=np.int32))
         return np.concatenate(srcs), np.concatenate(mdls)
 
-    def to_device(self, device) -> "SceneDevice":
+    def to_device(self, device="cuda") -> "SceneDevice":
+        """The scene's arrays as tensors on ``device``: the card unless the
+        caller asks for the CPU."""
         world_tri_src, world_tri_model = self.world_instance_maps()
 
         def put(a, dtype):

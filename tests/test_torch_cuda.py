@@ -372,3 +372,111 @@ def test_pallas_render_on_gpu_matches_cpu(dev):
     for tile in (512, None):
         d = (out["cuda", tile] - out["cpu", tile]).abs()
         assert d.mean().item() <= 1e-4 and (d <= 1e-5).float().mean().item() >= 0.995
+
+
+# --------------------------------------------------------------------------
+# the debug form of kernels 1, 2 and 4 (PTAP_DEBUG=1)
+# --------------------------------------------------------------------------
+
+
+def test_debug_trace_list_kernel_matches_fast_and_plain(dev, world):
+    """Kernel 1's explicit-mask form against its fast form on primaries and
+    on the degenerate rays of tests/test_debug_mode.py, and against its
+    plain version in the same form."""
+    from pathtracerap_tpu_torch.utils.debug import degenerate_rays
+
+    ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
+    dro, drd = degenerate_rays(world)
+    ro, rd = torch.cat([ro, dro]), torch.cat([rd, drd])
+    w16, lists = TT.primary_inputs(world, ro, rd)
+    fast = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block, False)
+    before = TT.nearest_hit_fused.launches
+    dbg = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block, True)
+    torch.cuda.synchronize()
+    assert TT.nearest_hit_fused.launches == before + 1
+    assert torch.equal(dbg[0], fast[0]) and torch.equal(dbg[1], fast[1])
+    tp, ip = TT.nearest_hit_fused_plain(w16, world.fused_ops, lists.shape[1], world.tri_block, True)
+    n = ro.shape[0]  # the padding lanes of dead tiles are not traced
+    assert (dbg[1][:n] == ip[:n]).float().mean().item() >= 0.9999
+
+
+def test_debug_bounce_kernel_matches_fast(dev, world, wavefront):
+    pack, u = wavefront
+    ray_tile = TM.binned_ray_tile(world)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    fast = TM.bounce(pack, u, lists, unit, world, ray_tile, True, debug=False)
+    dbg = TM.bounce(pack, u, lists, unit, world, ray_tile, True, debug=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dbg[0], fast[0]) and torch.equal(dbg[1], fast[1])
+
+
+def test_debug_fused_kernel_matches_fast(dev, world):
+    w16, prim, u = _fused_case(world, dev, CameraConfig(), (128, 64), True)
+    fast = TM.sample_fused(w16, prim, u[0], world, 5, False, False, debug=False)
+    dbg = TM.sample_fused(w16, prim, u[0], world, 5, False, False, debug=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dbg, fast)
+
+
+# --------------------------------------------------------------------------
+# the profiling kernels P1 to P4
+# --------------------------------------------------------------------------
+
+
+def _prof_inputs(dev, n, k, tb=512, nb=8, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.randn((n, k), generator=g).to(dev)
+    ops = torch.randn((k, 4 * tb * nb), generator=g).to(dev)
+    attr = torch.randn((16, tb * nb), generator=g).to(dev)
+    return w, ops, attr
+
+
+@pytest.mark.parametrize("variant", ["mm_bf16", "mm_bf16x3", "mm_f32", "accept", "argmin",
+                                     "select"])
+def test_prof_parts_kernel_matches_plain(dev, variant):
+    """P1 at its widths (R = TB = 512, NB = 8) on 8,192 rays: the products
+    within rtol 1e-5, the accept chain and what follows on 99.9 % of rays."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    w, ops, attr = _prof_inputs(dev, 8192, 16)
+    before = P.parts.launches
+    out = P.parts(variant, w, ops, attr, 512, 512, 8)
+    torch.cuda.synchronize()
+    assert P.parts.launches == before + 1
+    ref = P.parts_plain(variant, w, ops, attr, 512, 512, 8)
+    close = torch.isclose(out, ref, rtol=1e-5, atol=0.0)
+    assert close.float().mean().item() >= (1.0 if variant.startswith("mm_") else 0.999)
+
+
+@pytest.mark.parametrize("k, unroll", [(16, True), (32, False), (128, False), (128, True)])
+def test_prof_parts_kernel_depths_match_plain(dev, k, unroll):
+    """P2's product variants: single-pass bf16 at K = 16, 32, 128."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    w, ops, _ = _prof_inputs(dev, 4096, k, seed=k)
+    out = P.parts("mm_bf16", w, ops, None, 512, 512, 8, unroll=unroll)
+    ref = P.parts_plain("mm_bf16", w, ops, None, 512, 512, 8)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("with_ops", [True, False])
+def test_prof_empty_kernel_matches_plain(dev, with_ops):
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    w, ops, _ = _prof_inputs(dev, 1563 * 512, 16, tb=1024, nb=4)
+    out = P.empty(w, 512, ops if with_ops else None)
+    assert torch.equal(out, P.empty_plain(w))
+
+
+def test_prof_argmin_kernel_matches_plain(dev):
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    x = torch.randn((512, 512), generator=torch.Generator().manual_seed(1)).to(dev)
+    x[7, 300] = x[7, 20] = x[7].min() - 1.0  # a tie: the first index wins
+    bases = torch.tensor([3, 9, 1, 7], dtype=torch.int32, device=dev)
+    before = P.argmin_int.launches
+    out = P.argmin_int(x, bases)
+    torch.cuda.synchronize()
+    assert P.argmin_int.launches == before + 1
+    assert torch.equal(out, P.argmin_int_plain(x, bases))
+    assert out[7].item() == 3 * 128 + 20

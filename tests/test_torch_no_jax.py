@@ -1,7 +1,8 @@
 """The port renders and trains where JAX is absent: the machine with the GPU
 has none.  It imports nothing of the JAX package either, not even its
 jax-free host modules: it keeps its own copies (``tests/test_torch_host.py``
-holds them equal)."""
+holds them equal).  That covers its utilities (checkpoint/resume, metrics,
+profiling, debug checks) and its profiling scripts and kernels."""
 
 import os
 import re
@@ -38,6 +39,25 @@ for engine in ("fused", "pallas"):
     params = extract_params(scene)
     loss, new = step(params, torch.zeros(16 * 8, 3), prng_key(0, "cpu"))
     assert torch.isfinite(loss) and not torch.equal(new["mat_color"], params["mat_color"])
+import io, tempfile
+from pathtracerap_tpu_torch.scripts import (
+    prof_kernel_parts, prof_kernel_parts2, prof_mega_sweep, prof_r5_shade,
+)
+from pathtracerap_tpu_torch.kernels import prof
+from pathtracerap_tpu_torch.utils import MetricsLogger, load_checkpoint, profile_trace
+from pathtracerap_tpu_torch.utils.debug import checked_trace
+w = torch.randn(64, 16)
+assert prof.parts("select", w, torch.randn(16, 64), torch.randn(16, 16), 8, 8, 2).shape == (64,)
+cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=2, samples_per_chunk=1, max_bounces=2,
+                   engine="fused")
+with tempfile.TemporaryDirectory() as tmp:
+    log = MetricsLogger(cfg, stream=io.StringIO())
+    with profile_trace(tmp):
+        r = Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu")
+        r.render(checkpoint_path=tmp + "/c.ckpt", metrics=log)
+    assert load_checkpoint(tmp + "/c.ckpt").samples_done == 2 and len(log.chunks) == 2
+from pathtracerap_tpu_torch.render.camera import generate_rays
+checked_trace(r.world, *generate_rays(cfg.camera, (8, 8), device="cpu"))
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """
