@@ -42,6 +42,14 @@ and read just after:
   ``MetricsLogger`` and under ``profile_trace``; and the four profiling
   scripts' ``main()`` (``pathtracerap_tpu_torch/scripts``) at full size.
 
+Kernels 2 and 4 (``csrc/bounce.cu``, ``csrc/megakernel.cu``) must be bit
+for bit their plain versions: kernel 2's state on every ray and its index
+on every live ray, kernel 4's contribution and index stream, in every
+mode; each is timed at every R (rays per thread) it is built for, and its
+kernel line gives R, its registers and spills (``ptxas -v``), and for
+kernel 4 the (ray, triangle) pairs its compacted sweep issues beside the
+live pairs of its bound.
+
 Every check raises on failure, so the script exits non-zero before its
 last line, which is
 
@@ -137,6 +145,29 @@ def cuda_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def card_while_running(fn, seconds: float = 2.0) -> dict:
+    """``fn`` launched back to back for about ``seconds`` while nvidia-smi
+    samples the card every 200 ms: the steady launch time and the SM clock
+    and power draw it ran at (the samples after the first two)."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, text=True)
+    try:
+        t0, k = time.perf_counter(), 0
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+            k += 1
+        dt = time.perf_counter() - t0
+    finally:
+        smi.terminate()
+    rows = [ln.split(",") for ln in smi.communicate()[0].strip().splitlines()[2:]]
+    return {"ms_per_launch": dt / k * 1e3, "sm_clock_mhz": [float(r[0]) for r in rows],
+            "power_w": [float(r[1]) for r in rows]}
 
 
 def downsample(x, f: int):
@@ -251,13 +282,37 @@ def bounce1_wavefront(world, dev, camera=None, resolution=RESOLUTION, bounces=MA
     return pack, u_flat[:, 4:8][pix], lists, unit, ray_tile
 
 
-def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None):
+def kernel_build(kernel: str, rays_per_thread: int) -> dict:
+    """Registers, spills and shared memory of the fast instantiation of
+    kernel 2 (``bounce``) or 4 (``sample_fused``) at R rays per thread,
+    from the build log (``ptxas -v``)."""
+    from pathtracerap_tpu_torch.kernels import _build
+
+    mangled = {"bounce": "13bounce_kernel", "sample_fused": "19sample_fused_kernel"}[kernel]
+    res = _build.kernel_resources()
+    (key,) = [k for k in res if f"{mangled}ILi{rays_per_thread}ELb0E" in k]
+    return res[key]
+
+
+def _by_rays_per_thread(run) -> dict:
+    """``run(rays_per_thread)`` timed at each R the kernels are built for."""
+    from pathtracerap_tpu_torch.kernels.megakernel import RAYS_PER_THREAD_CHOICES
+
+    return {r: cuda_ms(lambda r=r: run(r)) for r in RAYS_PER_THREAD_CHOICES}
+
+
+def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None, exact=True):
     """Kernel 2 against its plain version on bounce 1 of the first
     4-sample slab, the sorted wavefront ``render_samples_binned`` builds
-    (the plain version on its first ``plain_rows`` rows when given)."""
+    (the plain version on its first ``plain_rows`` rows when given).  The
+    state is bit-equal wherever the hit index agrees; with ``exact`` the
+    index agrees on every live ray, so the state is bit-equal on every
+    ray.  Times at each R (rays per thread)."""
     import torch
 
-    from pathtracerap_tpu_torch.kernels.megakernel import bounce, bounce_plain
+    from pathtracerap_tpu_torch.kernels.megakernel import (
+        BOUNCE_RAYS_PER_THREAD as RAYS_PER_THREAD, bounce, bounce_plain,
+    )
 
     pack, u_b, lists, unit, ray_tile = wavefront or bounce1_wavefront(world, dev)
     m = min(pack.shape[0], plain_rows or pack.shape[0])
@@ -286,13 +341,25 @@ def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None):
         "max_abs_err_per_col": [round(x, 9) for x in (d.amax(dim=0).tolist() if d.numel() else [])],
         "dead_pass_through": bool(torch.equal(full_k[0][~all_live], pack[~all_live])),
     }
+    row_bits = (out_k.view(torch.int32) == out_p.view(torch.int32)).all(dim=1)
+    res["bit_equal_share"] = row_bits.float().mean().item()
+    res["bit_equal_share_where_idx_agrees"] = row_bits[agree].float().mean().item()
     check(share >= K2_HIT_SHARE, f"kernel 2 hit agree share {share} >= {K2_HIT_SHARE}")
     check(max_abs <= K2_STATE_ABS, f"kernel 2 max state diff {max_abs} <= {K2_STATE_ABS}")
     check(res["dead_pass_through"], "kernel 2 leaves dead rays unchanged")
-    res["ms"] = cuda_ms(kern)
+    check(res["bit_equal_share_where_idx_agrees"] == 1.0,
+          "kernel 2 state bit-equal wherever the index agrees")
+    if exact:
+        check(share == 1.0 and res["bit_equal_share"] == 1.0,
+              f"kernel 2 bit-equal: live index share {share}, state {res['bit_equal_share']}")
+    res["rays_per_thread"] = RAYS_PER_THREAD
+    res["ms_by_rays_per_thread"] = _by_rays_per_thread(
+        lambda r: bounce(pack, u_b, lists, unit, world, ray_tile, True, rays_per_thread=r))
+    res["ms"] = res["ms_by_rays_per_thread"][RAYS_PER_THREAD]
     res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
+    res.update(kernel_build("bounce", RAYS_PER_THREAD))
     res.update(bound(PAIR_FLOPS * list_pairs(lists, all_live, ray_tile, unit),
-                     nbytes(pack, u_b, lists, world.fused_ops, world.attr_rows, *full_k)))
+                     nbytes(pack, u_b, lists, world.ops_tri, world.attr_rows, *full_k)))
     return res
 
 
@@ -583,11 +650,17 @@ def train_step_vs_cpu(dev):
 
 def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=False):
     """Kernel 4 against its plain version on one set of inputs: the share
-    of rays with every contribution within K4_ABS, the bit-equal share, the
-    largest error, times, live rays per bounce and the bound."""
+    of rays with every contribution within K4_ABS, the bit-equal share
+    (checked to be 1, and the index stream equal), the largest error,
+    times at each R (rays per thread), live rays per bounce, the (ray,
+    triangle) pairs the compacted sweep issues beside the live pairs, and
+    the bound."""
     import torch
 
-    from pathtracerap_tpu_torch.kernels.megakernel import sample_fused, sample_fused_plain
+    from pathtracerap_tpu_torch.kernels.megakernel import (
+        FUSED_RAYS_PER_THREAD as RAYS_PER_THREAD, FUSED_TILE, sample_fused, sample_fused_plain,
+        sweep_operands,
+    )
 
     def kern():
         return sample_fused(w16, prim, u, world, bounces, parity, use_primary, emit_idx)
@@ -604,8 +677,17 @@ def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=F
     d = (out_k - out_p).abs()
     close = (d <= K4_ABS).all(dim=1).float().mean().item()
     ns = u.shape[0] if u.dim() == 3 else 1
-    live = torch.stack(live).reshape(ns, bounces).sum(dim=0).tolist()
-    traced = sum(live[1:] if use_primary else live)  # ray-bounces the kernel sweeps
+    masks = torch.stack(live).reshape(ns, bounces, n)
+    live = masks.sum(dim=2).sum(dim=0).tolist()
+    traced_masks = masks[:, 1:] if use_primary else masks  # the bounces the kernel sweeps
+    traced = int(traced_masks.sum().item())
+    _, n_tris = sweep_operands(world)
+    n_tris = min(n_tris, world.block_aabb.shape[0] * world.tri_block)
+    # per (sample, traced bounce, tile): ceil(live / R) sweeping threads,
+    # a warp issuing all 32 of its lanes' R rays
+    tile_live = traced_masks.reshape(-1, FUSED_TILE).sum(dim=1)
+    sweepers = (tile_live + RAYS_PER_THREAD - 1) // RAYS_PER_THREAD
+    issued = int(((sweepers + 31) // 32 * 32 * RAYS_PER_THREAD).sum().item())
     res = {
         "rays": n, "samples": ns, "bounces": bounces, "parity": parity,
         "use_primary": use_primary, "emit_idx": emit_idx, "live_per_bounce": live,
@@ -616,17 +698,27 @@ def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=F
     }
     check(res["finite"], "kernel 4 output finite")
     check(close >= K4_CLOSE_SHARE, f"kernel 4 close share {close} >= {K4_CLOSE_SHARE}")
+    check(res["bit_equal_share"] == 1.0, f"kernel 4 bit-equal share {res['bit_equal_share']} == 1")
     outs = [out_k] + ([idx_k] if emit_idx else [])
     if emit_idx:
         hit = (idx_k != 0) | (idx_p != 0)
         share = (((idx_k == idx_p) & hit).sum() / hit.sum().clamp_min(1)).item()
         res["idx_equal_share"] = share
         check(share >= K4_IDX_SHARE, f"kernel 4 idx equal share {share} >= {K4_IDX_SHARE}")
-    res["ms"] = cuda_ms(kern)
+        check(bool(torch.equal(idx_k, idx_p)), "kernel 4 index stream equal")
+    res["rays_per_thread"] = RAYS_PER_THREAD
+    res["ms_by_rays_per_thread"] = _by_rays_per_thread(
+        lambda r: sample_fused(w16, prim, u, world, bounces, parity, use_primary, emit_idx,
+                               rays_per_thread=r))
+    res["ms"] = res["ms_by_rays_per_thread"][RAYS_PER_THREAD]
     res["plain_ms"] = cuda_ms(plain)
+    res.update(kernel_build("sample_fused", RAYS_PER_THREAD))
+    res["sweep_triangles"] = n_tris
+    res["pairs_live"] = traced * n_tris
+    res["pairs_swept"] = issued * n_tris
     # the sweep visits every real triangle for every live traced ray-bounce
-    res.update(bound(PAIR_FLOPS * traced * world.n_valid,
-                     nbytes(w16, prim, u, world.fused_ops, world.attr_rows, *outs)))
+    res.update(bound(PAIR_FLOPS * traced * n_tris,
+                     nbytes(w16, prim, u, world.ops_tri, world.attr_rows, *outs)))
     return res
 
 
@@ -663,7 +755,7 @@ def kernel4_vs_plain(ref_world, dev):
     import torch
 
     from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
-    from pathtracerap_tpu_torch.kernels.megakernel import primary_pack
+    from pathtracerap_tpu_torch.kernels.megakernel import primary_pack, sample_fused
     from pathtracerap_tpu_torch.kernels.trace import ray_vectors, trace_pallas
     from pathtracerap_tpu_torch.ops.math import normalize
     from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
@@ -671,8 +763,10 @@ def kernel4_vs_plain(ref_world, dev):
     from pathtracerap_tpu_torch.render.camera import generate_rays
 
     key = prng_key(0, dev)
-    res = {"traced_jittered": _fused_compare(ref_world, *quality_slab(dev), MAX_BOUNCES, False,
-                                             False)}
+    slab = quality_slab(dev)
+    res = {"traced_jittered": _fused_compare(ref_world, *slab, MAX_BOUNCES, False, False)}
+    res["traced_jittered"]["card_while_running"] = card_while_running(
+        lambda: sample_fused(*slab, ref_world, MAX_BOUNCES, False, False))
 
     world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
     ro, rd = generate_rays(CameraConfig(**CORNELL_CAMERA), CORNELL_RES, device=dev)
@@ -1190,10 +1284,11 @@ def megascene_render(dev):
     res["kernel1"] = kernel1_vs_plain(world, dev, _ROOM_CAMERA, res_xy, plain_rows=PLAIN_SLICE)
     wavefront = bounce1_wavefront(world, dev, _ROOM_CAMERA, res_xy, bounces)
     check(wavefront[2].shape[1] == MEGASCENE_BLOCKS, "bounce worklists are 701 blocks wide")
-    res["kernel2"] = kernel2_vs_plain(world, dev, wavefront, plain_rows=PLAIN_SLICE)
+    res["kernel2"] = kernel2_vs_plain(world, dev, wavefront, plain_rows=PLAIN_SLICE, exact=False)
     # from inside the room the sorted bounce rays list many of the 701 blocks
     inside = bounce1_wavefront(world, dev, CameraConfig(**INSIDE_CAMERA), res_xy, bounces)
-    res["kernel2_inside"] = kernel2_vs_plain(world, dev, inside, plain_rows=PLAIN_SLICE)
+    res["kernel2_inside"] = kernel2_vs_plain(world, dev, inside, plain_rows=PLAIN_SLICE,
+                                             exact=False)
     return res
 
 
@@ -1308,9 +1403,12 @@ def debug_vs_fast(world, dev):
 
         (o_f, i_f), (o_d, i_d) = kern(False), kern(True)
         same = _equal_live(o_f, o_d, live) and _equal_live(i_f, i_d, live)
+        bits = (o_f.view(torch.int32) == o_d.view(torch.int32)).all(dim=1)[live]
         check(same, f"{name}: debug and fast forms equal on live rays")
         res[name] = {"rays": int(live.sum().item()), "equal": same,
+                     "bit_equal_share": bits.float().mean().item(),
                      "hits": int((i_d[live] >= 0).sum().item())}
+        check(res[name]["bit_equal_share"] == 1.0, f"{name}: debug state bit-equal")
         if name == "bounce":
             res[name].update(ms=cuda_ms(lambda: kern(False)), debug_ms=cuda_ms(lambda: kern(True)))
 
@@ -1326,8 +1424,12 @@ def debug_vs_fast(world, dev):
 
         (c_f, i_f), (c_d, i_d) = kern(False), kern(True)
         same = bool(torch.equal(c_f, c_d) and torch.equal(i_f, i_d))
+        bits = (c_f.view(torch.int32) == c_d.view(torch.int32)).all(dim=1)
         check(same, f"{name}: debug and fast forms equal")
-        res[name] = {"rays": w.shape[0], "equal": same, "hits": int((i_d > 0).sum().item())}
+        res[name] = {"rays": w.shape[0], "equal": same,
+                     "bit_equal_share": bits.float().mean().item(),
+                     "hits": int((i_d > 0).sum().item())}
+        check(res[name]["bit_equal_share"] == 1.0, f"{name}: debug contribution bit-equal")
         if name == "sample_fused":
             def run(debug):
                 return MK.sample_fused(w16, prim, u, world, MAX_BOUNCES, False, False, debug=debug)
@@ -1722,7 +1824,7 @@ def main() -> int:
     phase("prof_scripts", ps)
     check("jax" not in sys.modules, "jax was never imported")
 
-    def entry(name, source, replaces, launches, k, max_abs_err=None):
+    def entry(name, source, replaces, launches, k, max_abs_err=None, extra=()):
         out = {
             "name": name, "route": "cuda", "source": f"pathtracerap_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
@@ -1736,18 +1838,24 @@ def main() -> int:
         }
         if k.get("matmul_alone_ms") is not None:
             out["library_note"] = f"none (matmul alone: {k['matmul_alone_ms']} ms)"
+        out.update({key: k[key] for key in extra})
         return out
+
+    # kernels 2 and 4: R, the build's registers and spills, the time at each R
+    sweep = ("rays_per_thread", "registers", "spill_stores", "spill_loads", "ms_by_rays_per_thread")
 
     pallas = "pathtracerap_tpu/pallas/"
     k4q = k4["traced_jittered"]  # the quality render's launch, its main path
     kernels = [
         entry("trace_list", "trace_list.cu", pallas + "trace.py:188", mp["trace_list_launches"],
               k1),
-        entry("bounce", "bounce.cu", pallas + "megakernel.py:1666", mp["bounce_launches"], k2),
+        entry("bounce", "bounce.cu", pallas + "megakernel.py:1666", mp["bounce_launches"], k2,
+              extra=sweep),
         entry("bounce_trace", "bounce_trace.cu", pallas + "megakernel.py:1846",
               ts["bounce_trace_launches"], k3),
         entry("megakernel", "megakernel.cu", pallas + "megakernel.py:1206",
-              qr["sample_fused_launches"], k4q, max(m["max_abs_err"] for m in k4.values())),
+              qr["sample_fused_launches"], k4q, max(m["max_abs_err"] for m in k4.values()),
+              extra=sweep + ("pairs_swept", "pairs_live")),
         # the beyond-pack render's bounces are its launches: the bounce-1 wavefront's numbers
         entry("nearest_hit", "nearest_hit.cu", pallas + "trace.py:54", bp["nearest_hit_launches"],
               k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict))),
@@ -1755,7 +1863,7 @@ def main() -> int:
         entry("trace_list_701_blocks", "trace_list.cu", pallas + "trace.py:222",
               mega["trace_list_launches"], mega["kernel1"]),
         entry("bounce_701_blocks", "bounce.cu", pallas + "megakernel.py:954",
-              mega["bounce_launches"], mega["kernel2"]),
+              mega["bounce_launches"], mega["kernel2"], extra=sweep),
     ]
     # the profiling kernels: their path is the scripts' main() (prof_scripts)
     from pathtracerap_tpu_torch.kernels.prof import P1_VARIANTS, P2_VARIANTS

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.plucker import tri_major_ops
 from .scene.types import SceneDevice, WorldTriangles
 
 _INT_FIELDS = ("tri_block", "n_valid", "n_world_valid")
@@ -40,8 +41,13 @@ def scene_from_numpy(fields: dict, device) -> SceneDevice:
 
 
 def world_from_numpy(fields: dict, device) -> WorldTriangles:
-    """A :class:`WorldTriangles` on ``device`` from the JAX one's fields."""
-    return _from_numpy(WorldTriangles, fields, device)
+    """A :class:`WorldTriangles` on ``device`` from the JAX one's fields,
+    with the triangle-major ``ops_tri`` kernels 2 and 4 stage, which the JAX
+    world does not hold, made from its ``fused_ops``."""
+    world = _from_numpy(WorldTriangles, fields, device)
+    if world.fused_ops is not None:
+        world.ops_tri = tri_major_ops(world.fused_ops, world.tri_block)
+    return world
 
 
 def params_from_numpy(fields: dict, device) -> dict:

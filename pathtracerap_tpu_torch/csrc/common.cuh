@@ -7,11 +7,29 @@
 // hold [p x q, q - p] in rows 0-5, the plane column [-n, -d] in rows 6-9;
 // every other entry is zero.  A ray's vector is [dir, orig x dir, orig, -1].
 //
+// The triangle-major pack `ops_tri` (T, 24) holds, per triangle, the same
+// 22 non-zero entries in stage_ops' row order (s_ab rows 0-5, s_bc rows
+// 0-5, s_ca rows 0-5, plane rows 6-9) and two zero pads: 96 bytes, so a
+// run of triangles is one contiguous, 16-byte aligned span that 16-byte
+// cp.async copies stage, and six 16-byte shared loads bring a triangle's
+// operands into registers.
+//
+// What bounds a sweep on the H100.  `sweep` (kernels 1, 3 and 5) loads a
+// (ray, triangle) pair's 22 operands as 22 scalar shared loads and is
+// bound by the SM's shared-memory load pipe, about one warp-wide load a
+// clock.  `sweep_rays` (kernels 2 and 4) loads a triangle once as six
+// 16-byte broadcasts for the thread's R rays, and runs the division and
+// the accept chain only for pairs that a division-free test cannot reject
+// (may_accept); a pair then costs its 22 FMAs, the determinant and the
+// test, about 40 instructions, and the instruction issue bounds it.  The
+// old `sweep` and `stage_ops` stay until kernels 1, 3 and 5 move over.
+//
 // Rules shared with the JAX reference (ops/plucker.py, pallas/trace.py):
 //  * the accept chain is the five explicit comparisons below.  fminf/fmaxf
 //    must not be used for it: fminf(NaN, x) returns x, whereas the
 //    reference's min/max propagate NaN, and det == 0 lanes (NaN or inf
-//    u, v, t) must be rejected;
+//    u, v, t) must be rejected (may_accept's fminf only decides whether
+//    the chain runs);
 //  * an entry replaces the best only on a strictly smaller t, or on an
 //    equal finite t with a lower global triangle index;
 //  * the side and plane sums are fused multiply-add chains in row order,
@@ -25,6 +43,8 @@
 #define PTT_ONE_EPS 1.005f
 // rows staged per triangle: 6 edge rows x 3 quadrants + 4 plane rows
 #define PTT_ROWS 22
+// floats per triangle of the triangle-major pack (22 rows and 2 zero pads)
+#define PTT_TRI_FLOATS 24
 
 struct RayVec {
   float d0, d1, d2, m0, m1, m2, o0, o1, o2;
@@ -111,6 +131,117 @@ __device__ __forceinline__ void sweep(const float* sm, int width, int g0, const 
       best_idx = g;
     }
   }
+}
+
+// Whether accept_t can accept a pair, decided without its division: a
+// conservative test that never rejects a pair the chain (either form)
+// accepts.  Let a = |det|.  Below 2^-128 the reciprocal overflows and the
+// chain accepts nothing.  Above it the reciprocal and the products u, v, t
+// are within a relative 2^-20 of s_ca / det, s_ab / det and num / det (or
+// below 2^-126 in magnitude), so an accepted pair has u, v, t >= -0.005
+// and u + v <= 1.005, hence s_bc / det >= -0.0051 (an accepted pair has
+// |s_ab|, |s_ca| <= 1.011 a, so det's rounding is negligible): each of
+// s_ab, s_bc, s_ca and num, times the sign of det, is at least -0.006 a,
+// a bound whose rounding the 20 % margin covers down to a = 2^-140.  An
+// infinite det passes, a NaN one fails, as in the chain.  The test costs
+// five multiplies on the FMA pipe and five compares; bitwise & and | keep
+// it free of branches, which would split the R rays of sweep_rays into
+// basic blocks the scheduler cannot interleave.
+__device__ __forceinline__ bool may_accept(float s_ab, float s_bc, float s_ca, float num) {
+  const float det = s_ab + s_bc + s_ca;
+  const float sgn = __int_as_float(0x3f800000 | (__float_as_int(det) & 0x80000000));
+  const float bound = -0.006f * fabsf(det);
+  const float lo = fminf(fminf(s_ab * sgn, s_bc * sgn), fminf(s_ca * sgn, num * sgn));
+  return lo >= bound;
+}
+
+// A (ray, triangle) pair's side values and t * det: the fmaf chains of
+// side() and plane() in their row order, on a triangle-major row q.
+struct PairSums {
+  float ab, bc, ca, pl;
+};
+
+__device__ __forceinline__ PairSums pair_sums(const float4 (&q)[6], const RayVec& v) {
+  float ab = v.d0 * q[0].x;
+  ab = fmaf(v.d1, q[0].y, ab);
+  ab = fmaf(v.d2, q[0].z, ab);
+  ab = fmaf(v.m0, q[0].w, ab);
+  ab = fmaf(v.m1, q[1].x, ab);
+  ab = fmaf(v.m2, q[1].y, ab);
+  float bc = v.d0 * q[1].z;
+  bc = fmaf(v.d1, q[1].w, bc);
+  bc = fmaf(v.d2, q[2].x, bc);
+  bc = fmaf(v.m0, q[2].y, bc);
+  bc = fmaf(v.m1, q[2].z, bc);
+  bc = fmaf(v.m2, q[2].w, bc);
+  float ca = v.d0 * q[3].x;
+  ca = fmaf(v.d1, q[3].y, ca);
+  ca = fmaf(v.d2, q[3].z, ca);
+  ca = fmaf(v.m0, q[3].w, ca);
+  ca = fmaf(v.m1, q[4].x, ca);
+  ca = fmaf(v.m2, q[4].y, ca);
+  float pl = v.o0 * q[4].z;
+  pl = fmaf(v.o1, q[4].w, pl);
+  pl = fmaf(v.o2, q[5].x, pl);
+  pl = fmaf(-1.0f, q[5].y, pl);
+  return {ab, bc, ca, pl};
+}
+
+// The same sweep for R rays at once over `width` triangles staged
+// triangle-major (`width` x 6 float4): six 16-byte loads a triangle serve
+// the thread's R rays.  Only where some ray may be accepted (may_accept)
+// does the thread run accept_t and the lexicographic improve, operation by
+// operation as in `sweep`: each ray's (best, best_idx) is bit for bit the
+// one `sweep` gives, and the hot loop holds no division, whose
+// special-case branch would serialize the R rays.
+template <int R, bool Debug = false>
+__device__ __forceinline__ void sweep_rays(const float4* sm, int width, int g0, const RayVec (&r)[R],
+                                           float (&best)[R], int (&best_idx)[R]) {
+  for (int c = 0; c < width; ++c) {
+    const float4* p = sm + 6 * c;
+    const float4 q[6] = {p[0], p[1], p[2], p[3], p[4], p[5]};
+    PairSums ps[R];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      ps[k] = pair_sums(q, r[k]);
+      any |= may_accept(ps[k].ab, ps[k].bc, ps[k].ca, ps[k].pl);
+    }
+    if (__builtin_expect(any, 0)) {
+      const int g = g0 + c;
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float t = accept_t<Debug>(ps[k].ab, ps[k].bc, ps[k].ca, ps[k].pl);
+        if (t < best[k] || (t == best[k] && t < PTT_F_MAX && g < best_idx[k])) {
+          best[k] = t;
+          best_idx[k] = g;
+        }
+      }
+    }
+  }
+}
+
+// 16-byte asynchronous global -> shared copies (cp.async, Ampere and
+// later), committed as one group per staged run.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start staging triangles [g0, g0 + width) of the (T, 24) triangle-major
+// pack into sm (width x 6 float4): every thread of the block issues its
+// share of the 16-byte copies, as one commit group.  The copies land
+// behind the caller's work; cp_async_wait_all() then a block barrier
+// make them visible to every thread.
+__device__ __forceinline__ void stage_tri_async(float4* sm, const float* __restrict__ ops_tri,
+                                                int g0, int width) {
+  const float4* src = reinterpret_cast<const float4*>(ops_tri) + (size_t)g0 * 6;
+  for (int i = threadIdx.x; i < width * 6; i += blockDim.x) cp_async16(sm + i, src + i);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Launch helper: opt in to more than 48 KB of dynamic shared memory.

@@ -7,7 +7,7 @@
 // _sample_pallas_call_batched, over a batch of samples) with its sweep-mode
 // _trace_inkernel, select_attrs and _shade_inkernel(_t).  Same contract:
 // per ray, bounce 0 shades from the cached primary-hit row (use_primary)
-// or traces the ray; every later bounce sweeps every real block in
+// or traces the ray; every later bounce sweeps every real triangle in
 // ascending index order, keeps the nearest accepted triangle (exact-t ties
 // to the lowest index), reads its attribute rows and shades with this
 // bounce's 4 uniforms (column block 4b).  The output is the contribution
@@ -16,25 +16,46 @@
 // where the ray was already dead), the frozen hit topology of the
 // differentiable replay.
 //
-// What bounds it on the H100: FP32 FMA issue in the sweep, as kernels 1-3 --
-// about 50 flops per (ray, triangle) against 88 bytes of shared operands,
-// and here every live ray meets every real triangle slot at every bounce
-// (no worklists: the ray state never leaves the kernel to be sorted).  The
-// shading is a few hundred flops per ray and bounce.  The design: one
-// thread block per 256-ray tile, one thread per ray, its 10-word state
-// [orig, dir, color, remaining] in registers for the whole sample.  Every
-// ray of a tile sweeps the same triangles in the same order, so the tile
-// stages each 128-triangle run's 22 operand rows (11 KB) in shared memory
-// once and every live thread sweeps it; dead rays help with the staging
-// and skip the sweep, and a tile with no live ray skips the bounce's
-// trace.  Above 8 blocks (GATE_BLOCKS, kernels/megakernel.py) the tile
-// skips a block that no live ray's slab test reaches within the current
-// best (the TPU kernel's gate, per tile with __syncthreads_or; it never
-// changes a hit).  A sample batch
-// is a loop over samples that sums in registers, where the TPU carried the
-// sum across a sequential grid dimension in VMEM.  The TPU kernel's
-// bf16x3 MXU products, one-hot attribute matmul and lane-major shading
-// layout are TPU devices and are not carried over.
+// What bounds it on the H100: the sweep, every live ray against every real
+// triangle at every traced bounce (no worklists: the ray state never
+// leaves the kernel to be sorted); the shading is a few hundred flops per
+// ray and bounce.  The first port (one thread per ray, 22 scalar shared
+// loads and a division per pair, every lane of a warp with one live lane
+// sweeping, the padding of the last block swept too) was bound by the SM's
+// shared-memory load pipe.  The design now:
+//  * one thread block per 256-ray tile of 256 / R threads; each thread owns
+//    R rays (strided by 256 / R), their 10-word states [orig, dir, color,
+//    remaining] in registers for the whole sample, and reads the attributes
+//    and shades them (uniforms and idx_out in the original ray order);
+//  * live-ray compaction at each traced bounce: every live ray writes its
+//    ray vector to a compacted slot in shared memory (warp ballots plus a
+//    block prefix), and the first ceil(live / R) threads sweep R compacted
+//    rays each (common.cuh sweep_rays: six 16-byte loads a triangle for R
+//    rays, the division only where may_accept cannot reject the pair), then
+//    hand (t, index) back through shared memory to the owner.  Which thread
+//    sweeps a ray changes no bit of its result; no dead lane sweeps;
+//  * the sweep stops at the last real triangle (n_tris): padding columns are
+//    zero, det = 0 gives t = NaN, which the accept chain rejects in both
+//    forms, so the cut is exact;
+//  * 128-triangle runs of the triangle-major pack are staged by 16-byte
+//    cp.async into two shared buffers: run j + 1 lands while run j is swept,
+//    with one block barrier a run (cp.async rather than the bulk TMA copy:
+//    a run is 12 KB that every thread issues in three 16-byte copies, and
+//    the barrier that frees the other buffer is needed anyway, so an
+//    mbarrier's phase tracking would buy nothing);
+//  * above 8 blocks (GATE_BLOCKS, kernels/megakernel.py) the tile skips a
+//    block that no live ray's slab test reaches within its current best
+//    (the TPU kernel's gate), evaluated by the sweeping threads over their
+//    rays with __syncthreads_or; it never changes a hit.
+// On the card the sweep then issues about 40 instructions a pair (22 FMAs,
+// the determinant, may_accept) at about 2 warp-instructions per SM clock
+// whatever R is: the loads no longer bound it, and R = 1 (the most resident
+// warps) is as fast as R = 4 on the quality slab and faster on the Cornell
+// batch (PERF.md), so FUSED_RAYS_PER_THREAD is 1.
+// A sample batch is a loop over samples that sums in registers, where the
+// TPU carried the sum across a sequential grid dimension in VMEM.  The TPU
+// kernel's bf16x3 MXU products, one-hot attribute matmul and lane-major
+// shading layout are TPU devices and are not carried over.
 
 #include "shade.cuh"
 
@@ -42,20 +63,22 @@ namespace {
 
 constexpr int kFusedTile = 256;  // rays per thread block
 constexpr int kSweepRun = 128;   // triangles staged per shared-memory run
+constexpr int kWarps = kFusedTile / 32;
 
-// The winner's attribute rows [shade_n, mat_type, rgb, geom_n, idx+1, ri]
-// (WorldTriangles.attr_rows, (16, attr_cols) row-major).
-__device__ __forceinline__ Attrs read_attrs(const float* __restrict__ attr, int attr_cols,
-                                            int idx) {
-  const float* c = attr + idx;
-  const size_t ld = attr_cols;
-  Attrs a;
-  a.n = {c[0 * ld], c[1 * ld], c[2 * ld]};
-  a.mt = c[3 * ld];
-  a.rgb = {c[4 * ld], c[5 * ld], c[6 * ld]};
-  a.gn = {c[7 * ld], c[8 * ld], c[9 * ld]};
-  a.ri = c[11 * ld];
-  return a;
+struct FusedSmem {
+  float4 run[2][kSweepRun * 6];  // two staged runs of the triangle-major pack
+  float ray[9][kFusedTile];      // compacted ray vectors [d, o x d, o], by slot
+  float res_t[kFusedTile];       // (t, index) of each compacted slot
+  int res_i[kFusedTile];
+  int warp_live[2][kWarps];      // live rays per warp, alternating by traced bounce
+};
+
+__device__ __forceinline__ void ray_inv(const RayVec& r, float inv[3]) {
+  const float d[3] = {r.d0, r.d1, r.d2};
+  for (int k = 0; k < 3; ++k) {
+    const float dk = fabsf(d[k]) < 1e-12f ? (d[k] < 0.0f ? -1e-12f : 1e-12f) : d[k];
+    inv[k] = 1.0f / dk;
+  }
 }
 
 // The TPU kernel's per-block gate (megakernel.py:1139-1162): the slab test
@@ -75,98 +98,238 @@ __device__ __forceinline__ bool box_reaches(const float* __restrict__ box, const
   return tmax >= -margin && tmin <= tmax + margin && tmin - margin <= best;
 }
 
-}  // namespace
-
-// Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
-template <bool Debug>
-__global__ void __launch_bounds__(kFusedTile)
-sample_fused_kernel(const float* __restrict__ w16,    // (N, 16) [dir, o x dir, orig, -1, 1, 0...]
-                    const float* __restrict__ prim,   // (N, 16) [t, n, mt, rgb, gn, idx+1, ri, 0..]
-                    const float* __restrict__ uni,    // (ns, N, 4 * max_bounces)
-                    int n, int ns, int max_bounces,
-                    const float* __restrict__ ops,    // (16, ops_cols)
-                    int ops_cols,
-                    const float* __restrict__ attr,   // (16, attr_cols)
-                    int attr_cols,
-                    const float* __restrict__ aabb,   // (n_blocks, 8)
-                    const float* __restrict__ margin, // (1,)
-                    int n_blocks, int tri_block, int parity, int use_primary, int gated,
-                    float* __restrict__ out,          // (N, 3)
-                    int* __restrict__ idx_out) {      // (N, max_bounces) or null
-  extern __shared__ float sm[];
-  const size_t ray = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const float* wr = w16 + ray * 16;
-  const float* pr = prim + ray * 16;
-  const int ucols = 4 * max_bounces;
-  const float slack = gated ? margin[0] : 0.0f;
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-
-  for (int smp = 0; smp < ns; ++smp) {
-    float s[10] = {wr[6], wr[7], wr[8], wr[0], wr[1], wr[2], 1.0f, 1.0f, 1.0f,
-                   (float)max_bounces};
-    const float* u = uni + ((size_t)smp * n + ray) * ucols;
-    for (int b = 0; b < max_bounces; ++b) {
-      const bool alive = s[9] > 0.0f;
-      float t = PTT_F_MAX;
-      int idx1 = 0;
-      Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
-      if (b == 0 && use_primary) {
-        t = pr[0];
-        a.n = {pr[1], pr[2], pr[3]};
-        a.mt = pr[4];
-        a.rgb = {pr[5], pr[6], pr[7]};
-        a.gn = {pr[8], pr[9], pr[10]};
-        idx1 = (int)pr[11];
-        a.ri = pr[12];
-      } else if (__syncthreads_or(alive)) {  // the tile has a live ray
-        const RayVec r = state_ray(s);
-        float inv[3] = {0.0f, 0.0f, 0.0f};
-        if (gated) {
-          const float d[3] = {r.d0, r.d1, r.d2};
-          for (int k = 0; k < 3; ++k) {
-            const float dk = fabsf(d[k]) < 1e-12f ? (d[k] < 0.0f ? -1e-12f : 1e-12f) : d[k];
-            inv[k] = 1.0f / dk;
-          }
-        }
-        int best_idx = -1;
-        for (int blk = 0; blk < n_blocks; ++blk) {
-          if (gated &&
-              !__syncthreads_or(alive && box_reaches(aabb + (size_t)blk * 8, r, inv, slack, t))) {
-            continue;
-          }
-          for (int run = 0; run < tri_block; run += kSweepRun) {
-            const int g0 = blk * tri_block + run;
-            __syncthreads();  // the previous run's rows are no longer read
-            stage_ops(sm, ops, ops_cols, g0, kSweepRun, tri_block);
-            __syncthreads();
-            if (alive) sweep<Debug>(sm, kSweepRun, g0, r, t, best_idx);
-          }
-        }
-        if (best_idx >= 0) a = read_attrs(attr, attr_cols, best_idx);
-        idx1 = best_idx + 1;  // best_idx is -1 exactly when t is FLOAT_MAX
+// Whether any live ray of the tile reaches block blk: each sweeping thread
+// tests its own compacted rays; every thread of the block must call it.
+template <int R>
+__device__ __forceinline__ bool tile_reaches(const float* __restrict__ aabb, int blk,
+                                             const RayVec (&r)[R], const float (&best)[R],
+                                             int nsw, int n_live, float margin) {
+  bool any = false;
+  if ((int)threadIdx.x < nsw) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if ((int)threadIdx.x + k * nsw < n_live) {
+        float inv[3];
+        ray_inv(r[k], inv);
+        any = any || box_reaches(aabb + (size_t)blk * 8, r[k], inv, margin, best[k]);
       }
-      if (idx_out) idx_out[ray * max_bounces + b] = alive ? idx1 : 0;
-      shade(s, t, a, u + 4 * b, parity != 0);  // a dead ray passes through
-    }
-    for (int k = 0; k < 3; ++k) {
-      const float c = sqrtf(clamp_min(s[6 + k], 0.0f));
-      acc[k] = smp == 0 ? c : acc[k] + c;
     }
   }
-  for (int k = 0; k < 3; ++k) out[ray * 3 + k] = acc[k];
+  return __syncthreads_or(any);
+}
+
+// The nearest hit of the tile's n_live compacted rays (sm.ray): the first
+// ceil(n_live / R) threads sweep R rays each (slots tid + k * nsw) over the
+// real triangles [0, n_tris), block by block; the results land in
+// sm.res_t / sm.res_i by slot.  Every thread of the block must call it.
+template <int R, bool Debug>
+__device__ __forceinline__ void trace_compacted(FusedSmem& sm, int n_live,
+                                                const float* __restrict__ ops_tri, int n_tris,
+                                                const float* __restrict__ aabb, int n_blocks,
+                                                int tri_block, int gated, float margin) {
+  const int tid = threadIdx.x;
+  const int nsw = (n_live + R - 1) / R;
+  const bool sweeper = tid < nsw;
+  RayVec r[R];
+  float best[R];
+  int best_idx[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int slot = min(tid + k * nsw, n_live - 1);  // surplus lanes repeat a live ray
+    r[k] = {sm.ray[0][slot], sm.ray[1][slot], sm.ray[2][slot], sm.ray[3][slot], sm.ray[4][slot],
+            sm.ray[5][slot], sm.ray[6][slot], sm.ray[7][slot], sm.ray[8][slot]};
+    best[k] = PTT_F_MAX;
+    best_idx[k] = -1;
+  }
+
+  int blk = 0;
+  while (gated && blk < n_blocks && !tile_reaches<R>(aabb, blk, r, best, nsw, n_live, margin)) {
+    ++blk;
+  }
+  int run = 0, buf = 0;
+  if (blk < n_blocks) {
+    stage_tri_async(sm.run[0], ops_tri, blk * tri_block, min(kSweepRun, n_tris - blk * tri_block));
+  }
+  while (blk < n_blocks) {
+    const int g0 = blk * tri_block + run;
+    const int width = min(kSweepRun, n_tris - g0);
+    int next_blk = blk, next_run = run + kSweepRun;
+    const bool block_ends = next_run >= tri_block || g0 + kSweepRun >= n_tris;
+    if (block_ends) {
+      next_blk = blk + 1;
+      next_run = 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();  // run `buf` is in for every thread; run buf ^ 1 is no longer read
+    // the next run is known now unless a gated block ends: its gate needs this run's best
+    if (!(block_ends && gated) && next_blk < n_blocks) {
+      const int g1 = next_blk * tri_block + next_run;
+      stage_tri_async(sm.run[buf ^ 1], ops_tri, g1, min(kSweepRun, n_tris - g1));
+    }
+    if (sweeper) sweep_rays<R, Debug>(sm.run[buf], width, g0, r, best, best_idx);
+    if (block_ends && gated) {
+      while (next_blk < n_blocks &&
+             !tile_reaches<R>(aabb, next_blk, r, best, nsw, n_live, margin)) {
+        ++next_blk;
+      }
+      if (next_blk < n_blocks) {
+        stage_tri_async(sm.run[buf ^ 1], ops_tri, next_blk * tri_block,
+                        min(kSweepRun, n_tris - next_blk * tri_block));
+      }
+    }
+    blk = next_blk;
+    run = next_run;
+    buf ^= 1;
+  }
+
+  if (sweeper) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int slot = tid + k * nsw;
+      if (slot < n_live) {
+        sm.res_t[slot] = best[k];
+        sm.res_i[slot] = best_idx[k];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+}  // namespace
+
+// R: rays each thread owns and sweeps; Debug: the explicit-mask accept
+// chain of PTAP_DEBUG=1 (common.cuh).
+template <int R, bool Debug>
+__global__ void __launch_bounds__(kFusedTile / R)
+sample_fused_kernel(const float* __restrict__ w16,      // (N, 16) [dir, o x dir, orig, -1, 1, 0...]
+                    const float* __restrict__ prim,     // (N, 16) [t, n, mt, rgb, gn, idx+1, ri, 0..]
+                    const float* __restrict__ uni,      // (ns, N, 4 * max_bounces)
+                    int n, int ns, int max_bounces,
+                    const float* __restrict__ ops_tri,  // (T, 24) triangle-major pack
+                    int n_tris,                         // real triangles: the sweep stops here
+                    const float* __restrict__ attr,     // (16, attr_cols)
+                    int attr_cols,
+                    const float* __restrict__ aabb,     // (n_blocks, 8)
+                    const float* __restrict__ margin,   // (1,)
+                    int n_blocks, int tri_block, int parity, int use_primary, int gated,
+                    float* __restrict__ out,            // (N, 3)
+                    int* __restrict__ idx_out) {        // (N, max_bounces) or null
+  constexpr int kThreads = kFusedTile / R, kW = kThreads / 32;  // R * kW == kWarps
+  __shared__ FusedSmem sm;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // this thread's rays: ray0 + k * kThreads, k < R
+  const size_t ray0 = (size_t)blockIdx.x * kFusedTile + threadIdx.x;
+  const int ucols = 4 * max_bounces;
+  const float slack = gated ? margin[0] : 0.0f;
+  float acc[R][3];
+  float s[R][10];
+  int pass = 0;  // traced bounces so far: picks the warp_live buffer
+
+  for (int smp = 0; smp < ns; ++smp) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float* wr = w16 + (ray0 + k * kThreads) * 16;
+      const float init[10] = {wr[6], wr[7], wr[8], wr[0], wr[1], wr[2], 1.0f, 1.0f, 1.0f,
+                              (float)max_bounces};
+      for (int c = 0; c < 10; ++c) s[k][c] = init[c];
+    }
+    for (int b = 0; b < max_bounces; ++b) {
+      const bool traced = !(b == 0 && use_primary);
+      int n_live = 0, slot[R];
+      if (traced) {
+        // compaction: each live ray's slot among the tile's live rays, in
+        // (k, warp, lane) order
+        int* wl = sm.warp_live[pass & 1];
+        ++pass;
+        unsigned live[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          live[k] = __ballot_sync(0xffffffffu, s[k][9] > 0.0f);
+          if (lane == 0) wl[k * kW + warp] = __popc(live[k]);
+          slot[k] = __popc(live[k] & ((1u << lane) - 1u));
+        }
+        __syncthreads();
+        for (int e = 0; e < kWarps; ++e) {
+          const int c = wl[e];
+          n_live += c;
+#pragma unroll
+          for (int k = 0; k < R; ++k) slot[k] += e < k * kW + warp ? c : 0;
+        }
+        if (n_live > 0) {  // the tile has a live ray
+#pragma unroll
+          for (int k = 0; k < R; ++k) {
+            if (s[k][9] > 0.0f) {
+              const RayVec r = state_ray(s[k]);
+              const float v[9] = {r.d0, r.d1, r.d2, r.m0, r.m1, r.m2, r.o0, r.o1, r.o2};
+              for (int j = 0; j < 9; ++j) sm.ray[j][slot[k]] = v[j];
+            }
+          }
+          __syncthreads();
+          trace_compacted<R, Debug>(sm, n_live, ops_tri, n_tris, aabb, n_blocks, tri_block, gated,
+                                    slack);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const size_t ray = ray0 + k * kThreads;
+        const bool alive = s[k][9] > 0.0f;
+        float t = PTT_F_MAX;
+        int idx1 = 0;
+        Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
+        if (!traced) {
+          const float* pr = prim + ray * 16;
+          t = pr[0];
+          a.n = {pr[1], pr[2], pr[3]};
+          a.mt = pr[4];
+          a.rgb = {pr[5], pr[6], pr[7]};
+          a.gn = {pr[8], pr[9], pr[10]};
+          idx1 = (int)pr[11];
+          a.ri = pr[12];
+        } else if (alive && n_live > 0) {
+          t = sm.res_t[slot[k]];
+          const int best_idx = sm.res_i[slot[k]];
+          if (best_idx >= 0) a = read_attrs(attr, attr_cols, best_idx);
+          idx1 = best_idx + 1;  // best_idx is -1 exactly when t is FLOAT_MAX
+        }
+        if (idx_out) idx_out[ray * max_bounces + b] = alive ? idx1 : 0;
+        const float* u = uni + ((size_t)smp * n + ray) * ucols;
+        shade(s[k], t, a, u + 4 * b, parity != 0);  // a dead ray passes through
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      for (int c = 0; c < 3; ++c) {
+        const float v = sqrtf(clamp_min(s[k][6 + c], 0.0f));
+        acc[k][c] = smp == 0 ? v : acc[k][c] + v;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    for (int c = 0; c < 3; ++c) out[(ray0 + k * kThreads) * 3 + c] = acc[k][c];
+  }
+}
+
+template <int R>
+static void* fused_kernel(int debug) {
+  return debug ? (void*)sample_fused_kernel<R, true> : (void*)sample_fused_kernel<R, false>;
 }
 
 extern "C" int ptt_sample_fused(const float* w16, const float* prim, const float* uni, int n,
-                                int ns, int max_bounces, const float* ops, int ops_cols,
+                                int ns, int max_bounces, const float* ops_tri, int n_tris,
                                 const float* attr, int attr_cols, const float* aabb,
                                 const float* margin, int n_blocks, int tri_block, int parity,
                                 int use_primary, int gated, float* out, int* idx_out,
-                                int debug, void* stream) {
+                                int rays_per_thread, int debug, void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)PTT_ROWS * kSweepRun * sizeof(float);
-  auto kernel = debug ? sample_fused_kernel<true> : sample_fused_kernel<false>;
-  kernel<<<n / kFusedTile, kFusedTile, smem, (cudaStream_t)stream>>>(
-      w16, prim, uni, n, ns, max_bounces, ops, ops_cols, attr, attr_cols, aabb, margin,
-      n_blocks, tri_block, parity, use_primary, gated, out, idx_out);
-  return (int)cudaGetLastError();
+  void* kernel = rays_per_thread == 1   ? fused_kernel<1>(debug)
+                 : rays_per_thread == 2 ? fused_kernel<2>(debug)
+                 : rays_per_thread == 4 ? fused_kernel<4>(debug)
+                                        : nullptr;
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  void* args[] = {&w16,    &prim,   &uni,  &n,        &ns,          &max_bounces, &ops_tri,
+                  &n_tris, &attr,   &attr_cols, &aabb, &margin,     &n_blocks,    &tri_block,
+                  &parity, &use_primary, &gated, &out, &idx_out};
+  return (int)cudaLaunchKernel(kernel, dim3(n / kFusedTile), dim3(kFusedTile / rays_per_thread),
+                               args, 0, (cudaStream_t)stream);
 }

@@ -103,6 +103,21 @@ struct Attrs {
   float mt, ri;
 };
 
+// The winner's attribute rows [shade_n, mat_type, rgb, geom_n, idx+1, ri]
+// (WorldTriangles.attr_rows, (16, attr_cols) row-major).
+__device__ __forceinline__ Attrs read_attrs(const float* __restrict__ attr, int attr_cols,
+                                            int idx) {
+  const float* c = attr + idx;
+  const size_t ld = attr_cols;
+  Attrs a;
+  a.n = {c[0 * ld], c[1 * ld], c[2 * ld]};
+  a.mt = c[3 * ld];
+  a.rgb = {c[4 * ld], c[5 * ld], c[6 * ld]};
+  a.gn = {c[7 * ld], c[8 * ld], c[9 * ld]};
+  a.ri = c[11 * ld];
+  return a;
+}
+
 // One shading step of one ray (render/shade.py::shade; Renderer.cpp:411-479).
 __device__ void shade(float* s, float t, const Attrs& a, const float* u, bool parity) {
   const V3 orig = {s[0], s[1], s[2]}, dir = {s[3], s[4], s[5]};

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
@@ -46,11 +47,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_trace_list.restype = i
     lib.ptt_trace_list.argtypes = [p, p, i, p, i, i, i, i, p, p, i, p]
     lib.ptt_bounce.restype = i
-    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, p, i, i, i, p, p, i, p]
+    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, i, p, i, i, p, p, i, i, p]
     lib.ptt_bounce_trace.restype = i
     lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, i, p, p, p]
     lib.ptt_sample_fused.restype = i
-    lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, i, p]
+    lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, i, i,
+                                     p]
     lib.ptt_nearest_hit.restype = i
     lib.ptt_nearest_hit.argtypes = [p, p, p, p, i, p, p, i, i, i, p, p, p, p]
     lib.ptt_prof_parts.restype = i
@@ -107,6 +109,30 @@ def build_log() -> str:
     registers and shared memory of each kernel)."""
     log = Path(library()._name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def kernel_resources(log: str = None) -> dict:
+    """Per compiled kernel (its mangled name), what ``ptxas -v`` reports:
+    ``{"registers", "spill_stores", "spill_loads", "smem"}`` (bytes for
+    the last three), from ``log`` or the loaded library's build log."""
+    out, name = {}, None
+    for line in (build_log() if log is None else log).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def check(err: int, what: str) -> None:

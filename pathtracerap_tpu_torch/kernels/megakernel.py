@@ -57,8 +57,15 @@ STATE_COLS = 10  # [orig(0:3), dir(3:6), color(6:9), remaining(9)]
 SAMPLE_BATCH = 8  # samples per fused launch, parity camera
 FUSED_SLAB_TILES = 64  # fused facade slab, in 8192-ray RNG tiles
 GATE_BLOCKS = 8  # the fused sweep gates blocks on their AABB above this many
-SWEEP_RUN = 128  # triangles kernel 4 stages per shared-memory run
+SWEEP_RUN = 128  # triangles kernels 2 and 4 stage per shared-memory run
 FUSED_TILE = 256  # rays per thread block of kernel 4 (csrc/megakernel.cu kFusedTile)
+# Rays each thread of kernels 2 and 4 carries through the sweep (R): one
+# triangle's operands, loaded from shared memory once, serve R rays.  The
+# kernels are compiled for each of RAYS_PER_THREAD_CHOICES; the defaults
+# are the fastest on the H100 (PERF.md).
+RAYS_PER_THREAD_CHOICES = (1, 2, 4)
+BOUNCE_RAYS_PER_THREAD = 2
+FUSED_RAYS_PER_THREAD = 1
 
 
 def use_sub_blocks(world: WorldTriangles) -> bool:
@@ -128,6 +135,31 @@ def _shade_pack(pack: torch.Tensor, hits: HitRecord, u: torch.Tensor, parity: bo
     return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1)
 
 
+def _rays_per_thread(rays_per_thread, default: int) -> int:
+    r = default if rays_per_thread is None else rays_per_thread
+    if r not in RAYS_PER_THREAD_CHOICES:
+        raise ValueError(f"rays_per_thread must be one of {RAYS_PER_THREAD_CHOICES}, got {r}")
+    return r
+
+
+def sweep_operands(world: WorldTriangles):
+    """What kernels 2 and 4 stage: ``(ops_tri, n_tris)``, the world's
+    (T, 24) triangle-major pack, checked, and the count of real
+    triangles the sweep stops at (padding is never accepted)."""
+    ops = world.ops_tri
+    if ops is None:
+        raise ValueError("world.ops_tri is None: kernels 2 and 4 stage the triangle-major pack "
+                         "that bake_world_triangles stores beside fused_ops")
+    if ops.dtype != torch.float32 or ops.dim() != 2 or ops.shape[1] != 24:
+        raise ValueError(f"ops_tri: expected float32 (T, 24), got {ops.dtype} {tuple(ops.shape)}")
+    if not ops.is_contiguous():
+        raise ValueError("ops_tri must be contiguous")
+    if ops.data_ptr() % 16:
+        raise ValueError("ops_tri must be 16-byte aligned: the kernels stage it with 16-byte copies")
+    t = ops.shape[0]
+    return ops, min(world.n_valid or t, t)
+
+
 def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, parity: bool,
                  debug: bool = False):
     """Plain version of kernel 2: one bounce of a (N, 10) ray-state pack
@@ -155,14 +187,17 @@ def bounce(
     ray_tile: int,
     parity: bool,
     debug: bool = None,
+    rays_per_thread: int = None,
 ):
     """One binned bounce: nearest hit over each tile's worklist, then
     shading.  Returns (new state, hit triangle index or -1; -1 as well
-    for the rays of a tile with no live ray).  ``debug`` selects the
-    explicit-mask accept chain (None: ``PTAP_DEBUG``).  Launches kernel 2
-    for CUDA tensors (counted in ``bounce.launches``), runs the plain
-    version for CPU ones."""
+    for a dead ray).  ``debug`` selects the
+    explicit-mask accept chain (None: ``PTAP_DEBUG``); ``rays_per_thread``
+    the kernel's R (None: ``BOUNCE_RAYS_PER_THREAD``), which changes no bit of the
+    result.  Launches kernel 2 for CUDA tensors (counted in
+    ``bounce.launches``), runs the plain version for CPU ones."""
     debug = resolve_debug(debug)
+    rpt = _rays_per_thread(rays_per_thread, BOUNCE_RAYS_PER_THREAD)
     n = pack.shape[0]
     nt, lw = lists.shape
     if n != nt * ray_tile:
@@ -171,17 +206,20 @@ def bounce(
         return bounce_plain(pack, u, world, parity, debug)
     if pack.device.type != "cuda":
         raise ValueError(f"no kernel for device {pack.device}")
-    if not 32 <= ray_tile <= 1024 or ray_tile % 32:
-        raise ValueError(f"ray_tile must be a multiple of 32 in [32, 1024], got {ray_tile}")
-    if world.tri_block % unit:
-        raise ValueError(f"unit {unit} does not divide tri_block {world.tri_block}")
+    if not 32 <= ray_tile <= 1024 or ray_tile % (32 * rpt):
+        raise ValueError(f"ray_tile must be a multiple of {32 * rpt} in [32, 1024] for "
+                         f"{rpt} rays per thread, got {ray_tile}")
+    if world.tri_block % unit or unit % SWEEP_RUN:
+        raise ValueError(f"unit {unit} must divide tri_block {world.tri_block} and be a "
+                         f"multiple of {SWEEP_RUN}")
     dev = pack.device
-    ops, attr = world.fused_ops, world.attr_rows
+    ops, n_tris = sweep_operands(world)
+    attr = world.attr_rows
     _check(pack, "pack", torch.float32, (n, STATE_COLS), dev)
     _check(u, "u", torch.float32, (n, 4), dev)
     _check(lists, "lists", torch.int32, (nt, lw), dev)
-    _check(ops, "fused_ops", torch.float32, (16, ops.shape[1]), dev)
-    _check(attr, "attr_rows", torch.float32, (16, ops.shape[1] // 4), dev)
+    _check(ops, "ops_tri", torch.float32, (ops.shape[0], 24), dev)
+    _check(attr, "attr_rows", torch.float32, (16, ops.shape[0]), dev)
     out = torch.empty_like(pack)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     err = _build.library().ptt_bounce(
@@ -193,12 +231,13 @@ def bounce(
         ctypes.c_int(unit),
         ctypes.c_int(ray_tile),
         ctypes.c_void_p(ops.data_ptr()),
+        ctypes.c_int(n_tris),
         ctypes.c_void_p(attr.data_ptr()),
         ctypes.c_int(attr.shape[1]),
-        ctypes.c_int(world.tri_block),
         ctypes.c_int(int(parity)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_int(rpt),
         ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -474,7 +513,7 @@ def _sample_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_prima
     for b in range(max_bounces):
         alive = pack[:, 9] > 0.0
         if live is not None:
-            live.append(alive.sum())
+            live.append(alive)
         if b == 0 and use_primary:
             hits = HitRecord(
                 t=prim[:, 0], normal=prim[:, 1:4], mat_type=prim[:, 4], mat_color=prim[:, 5:8],
@@ -501,8 +540,8 @@ def sample_fused_plain(w16, prim, u, world, max_bounces: int, parity: bool, use_
     0))``, summed in sample order when ``u`` is (ns, N, 4 * max_bounces);
     with ``emit_idx`` also the (N, max_bounces) int32 stream of index + 1
     where the ray was live and hit, else 0.  ``live``, a list, receives
-    each (sample, bounce)'s count of live rays (0-d tensors).  ``debug``:
-    the explicit-mask accept chain."""
+    each (sample, bounce)'s (N,) bool mask of live rays.  ``debug``: the
+    explicit-mask accept chain."""
     sample_fused_plain.calls += 1
     acc = idxs = None
     for us in (u if u.dim() == 3 else u[None]):
@@ -524,14 +563,18 @@ def sample_fused(
     use_primary: bool,
     emit_idx: bool = False,
     debug: bool = None,
+    rays_per_thread: int = None,
 ):
     """Whole samples through kernel 4: every bounce, every real block.
     Returns the (N, 3) contribution (summed over the samples of a batch),
     and with ``emit_idx`` (one sample only) the (N, max_bounces) int32
     index + 1 stream.  ``debug`` selects the explicit-mask accept chain
-    (None: ``PTAP_DEBUG``).  Launches kernel 4 for CUDA tensors (counted in
+    (None: ``PTAP_DEBUG``); ``rays_per_thread`` the rays each thread
+    owns and sweeps (None: ``FUSED_RAYS_PER_THREAD``), which changes no bit
+    of the result.  Launches kernel 4 for CUDA tensors (counted in
     ``sample_fused.launches``), runs the plain version for CPU ones."""
     debug = resolve_debug(debug)
+    rpt = _rays_per_thread(rays_per_thread, FUSED_RAYS_PER_THREAD)
     n = w16.shape[0]
     batched = u.dim() == 3
     if n % RAY_TILE:
@@ -549,16 +592,18 @@ def sample_fused(
     dev = w16.device
     ns = u.shape[0] if batched else 1
     ucols = 4 * max_bounces
-    ops, attr, aabb = world.fused_ops, world.attr_rows, world.block_aabb
+    ops, n_tris = sweep_operands(world)
+    attr, aabb = world.attr_rows, world.block_aabb
     nb = aabb.shape[0]
     _check(w16, "w16", torch.float32, (n, 16), dev)
     _check(prim, "prim", torch.float32, (n, 16), dev)
     _check(u, "u", torch.float32, (ns, n, ucols) if batched else (n, ucols), dev)
-    _check(ops, "fused_ops", torch.float32, (16, ops.shape[1]), dev)
-    _check(attr, "attr_rows", torch.float32, (16, ops.shape[1] // 4), dev)
+    _check(ops, "ops_tri", torch.float32, (ops.shape[0], 24), dev)
+    _check(attr, "attr_rows", torch.float32, (16, ops.shape[0]), dev)
     _check(aabb, "block_aabb", torch.float32, (nb, 8), dev)
-    if ops.shape[1] < nb * 4 * tb:
-        raise ValueError("fused_ops holds fewer blocks than block_aabb")
+    if ops.shape[0] < nb * tb:
+        raise ValueError("ops_tri holds fewer blocks than block_aabb")
+    n_tris = min(n_tris, nb * tb)  # the real triangles of the swept blocks
     margin = _slab_margin(aabb).reshape(1)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     idx = torch.empty((n, max_bounces), dtype=torch.int32, device=dev) if emit_idx else None
@@ -570,18 +615,19 @@ def sample_fused(
         ctypes.c_int(ns),
         ctypes.c_int(max_bounces),
         ctypes.c_void_p(ops.data_ptr()),
-        ctypes.c_int(ops.shape[1]),
+        ctypes.c_int(n_tris),
         ctypes.c_void_p(attr.data_ptr()),
         ctypes.c_int(attr.shape[1]),
         ctypes.c_void_p(aabb.data_ptr()),
         ctypes.c_void_p(margin.data_ptr()),
-        ctypes.c_int(nb),
+        ctypes.c_int(-(-n_tris // tb)),
         ctypes.c_int(tb),
         ctypes.c_int(int(parity)),
         ctypes.c_int(int(use_primary)),
         ctypes.c_int(int(nb > GATE_BLOCKS)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr() if emit_idx else None),
+        ctypes.c_int(rpt),
         ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )

@@ -71,11 +71,29 @@ def keeps_pack(n_world_triangles: int) -> bool:
     return n_world_triangles <= PACK_MAX_TRIANGLES
 
 
+def tri_major_ops(fused_ops: torch.Tensor, tri_block: int) -> torch.Tensor:
+    """The (T, 24) triangle-major operand pack of kernels 2 and 4: for
+    triangle g the 22 non-zero entries of its four ``fused_ops`` columns
+    in the kernels' staging order (s_ab rows 0-5, s_bc rows 0-5, s_ca rows
+    0-5, plane rows 6-9), then two zeros.  96 bytes a triangle, so a run
+    of triangles is one contiguous, 16-byte aligned span."""
+    t = fused_ops.shape[1] // 4
+    q = (
+        fused_ops.reshape(16, t // tri_block, 4, tri_block)
+        .permute(1, 3, 2, 0)  # (nb, TB, quadrant, row)
+        .reshape(t, 4, 16)
+    )
+    return torch.cat(
+        [q[:, 0:3, 0:6].reshape(t, 18), q[:, 3, 6:10], fused_ops.new_zeros((t, 2))], dim=1
+    ).contiguous()
+
+
 def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) -> WorldTriangles:
     """Bake all model instances into a world-space triangle soup, with the
     dense tracer's operands (``edge_mat``, ``plane_mat``, ``cluster_aabb``)
     and, unless ``fused_tile`` is None or the world is above the pack
-    budget (:func:`keeps_pack`), the fused (16, 4*T) operand pack, block /
+    budget (:func:`keeps_pack`), the fused (16, 4*T) operand pack, its
+    triangle-major copy ``ops_tri`` (:func:`tri_major_ops`), block /
     sub-block AABBs and attribute rows of the worklist kernels (see
     :class:`WorldTriangles`).  Without a pack the triangle axis is padded
     to ``SUB_BLOCK`` and ``tri_block`` is 0.
@@ -200,7 +218,7 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
     zeros2 = torch.zeros((cl_min.shape[0], 2), device=dev)
     cluster_aabb = torch.cat([cl_min.T, cl_max.T, zeros2.T], dim=0)  # (8, T/128)
 
-    fused_ops = block_aabb = attr_rows = sub_aabb = None
+    fused_ops = ops_tri = block_aabb = attr_rows = sub_aabb = None
     if fused_tile is not None:
         nb = t_pad // fused_tile
         # fused (16, 4*T) pack: per block, columns [ab | bc | ca | plane];
@@ -218,6 +236,9 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
             .reshape(16, 4 * t_pad)
             .contiguous()
         )
+        # the kernels take no gradient: the replay differentiates through
+        # fused_ops in torch
+        ops_tri = tri_major_ops(fused_ops.detach(), fused_tile)
         # per-block AABBs with the same slack; only the real blocks are
         # kept (an inverted box is always hit under the min/max-swapped
         # slab test)
@@ -271,6 +292,7 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
         tri_model=padt(tri_model).to(torch.int32),
         mat_table=scene.mat_color,
         fused_ops=fused_ops,
+        ops_tri=ops_tri,
         block_aabb=block_aabb,
         attr_rows=attr_rows,
         sub_aabb=sub_aabb,

@@ -177,7 +177,10 @@ class WorldTriangles:
     ``[dir(0:3), orig x dir(3:6), orig(6:9), -1(9), alive(10), 0...]``
     dotted with an edge column (rows 0-5 ``[p x q, q - p]``) gives that
     edge's Pluecker side value, and with the plane column (rows 6-9
-    ``[-n, -d_plane]``) gives t * det.  ``attr_rows`` (16, T) holds the
+    ``[-n, -d_plane]``) gives t * det.  ``ops_tri`` (T, 24) holds the same
+    non-zero entries triangle-major, detached
+    (:func:`pathtracerap_tpu_torch.ops.plucker.tri_major_ops`): what kernels 2
+    and 4 stage.  ``attr_rows`` (16, T) holds the
     per-triangle shading attributes ``[shade_n(0:3), mat_type(3),
     rgb(4:7), geom_n(7:10), idx+1(10), refractive_index(11), 0(12:16)]``.
 
@@ -204,6 +207,7 @@ class WorldTriangles:
     edge_mat: Optional[torch.Tensor] = None  # (3, 8, T) f32 edge_pluecker + 2 zero rows
     plane_mat: Optional[torch.Tensor] = None  # (8, T) f32 [n; d_plane; 0...]
     fused_ops: Optional[torch.Tensor] = None  # (16, 4*T) f32
+    ops_tri: Optional[torch.Tensor] = None  # (T, 24) f32, triangle-major fused_ops
     block_aabb: Optional[torch.Tensor] = None  # (nb_real, 8) f32
     attr_rows: Optional[torch.Tensor] = None  # (16, T) f32
     sub_aabb: Optional[torch.Tensor] = None  # (T/128, 8) f32, NaN padding rows

@@ -75,18 +75,24 @@ def wavefront(dev, world):
     return pack, u_flat[:, 4:8][pix]
 
 
-def _check_bounce(world, pack, u, lists, unit, ray_tile):
-    for parity in (True, False):
-        before = TM.bounce.launches
-        out, idx = TM.bounce(pack, u, lists, unit, world, ray_tile, parity)
-        torch.cuda.synchronize()
-        assert TM.bounce.launches == before + 1
+def _check_bounce(world, pack, u, lists, unit, ray_tile, parities=(True, False)):
+    """Kernel 2 at every R it is built for against its plain version: the
+    state bit-equal on every ray (dead rays pass through), the index on
+    live rays, -1 for the rays of a tile with no live ray."""
+    live = pack[:, 9] > 0
+    dead_tile = ~live.reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
+    for parity in parities:
         ref, ridx = TM.bounce_plain(pack, u, world, parity)
-        live = pack[:, 9] > 0
-        agree = (idx == ridx) & live
-        assert (agree.sum() / live.sum()).item() >= 0.9999
-        assert (out - ref).abs()[agree].max().item() <= 1e-4
-        assert torch.equal(out[~live], pack[~live])
+        for rpt in TM.RAYS_PER_THREAD_CHOICES:
+            if ray_tile % (32 * rpt):
+                continue
+            before = TM.bounce.launches
+            out, idx = TM.bounce(pack, u, lists, unit, world, ray_tile, parity, rays_per_thread=rpt)
+            torch.cuda.synchronize()
+            assert TM.bounce.launches == before + 1
+            assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), rpt
+            assert torch.equal(idx[live], ridx[live]), rpt
+            assert (idx[dead_tile] == -1).all()
 
 
 def test_bounce_kernel_matches_plain(dev, world, wavefront):
@@ -198,19 +204,22 @@ def _fused_case(world, dev, camera, res, jitter: bool):
 
 
 def _check_fused(world, w16, prim, u, parity, use_primary, emit_idx=False):
-    before = TM.sample_fused.launches
-    out = TM.sample_fused(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx)
-    torch.cuda.synchronize()
-    assert TM.sample_fused.launches == before + 1
+    """Kernel 4 at every R it is built for against its plain version: the
+    contribution bit-equal, and with emit_idx the index stream equal."""
     ref = TM.sample_fused_plain(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx)
-    if emit_idx:
-        (out, idx), (ref, ridx) = out, ref
-        assert idx.dtype == torch.int32 and idx.shape == (w16.shape[0], 5)
-        live = (idx != 0) | (ridx != 0)
-        assert ((idx == ridx) & live).sum().item() >= 0.9999 * live.sum().item()
-    assert torch.isfinite(out).all()
-    close = ((out - ref).abs() <= 1e-4).all(dim=1)
-    assert close.float().mean().item() >= 0.999
+    for rpt in TM.RAYS_PER_THREAD_CHOICES:
+        before = TM.sample_fused.launches
+        out = TM.sample_fused(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx,
+                              rays_per_thread=rpt)
+        torch.cuda.synchronize()
+        assert TM.sample_fused.launches == before + 1
+        if emit_idx:
+            (out, idx), (r, ridx) = out, ref
+            assert idx.dtype == torch.int32 and idx.shape == (w16.shape[0], 5)
+            assert torch.equal(idx, ridx), rpt
+        else:
+            r = ref
+        assert torch.equal(out.view(torch.int32), r.view(torch.int32)), rpt
 
 
 def test_fused_kernel_primary_batched_matches_plain(dev):
@@ -234,8 +243,9 @@ def test_fused_kernel_emit_idx_matches_plain(dev):
 
 
 def test_fused_kernel_gated_sweep_matches_plain(dev):
-    """Above 8 blocks the kernel gates each block on its AABB per tile; the
-    plain version sweeps every block.  Nine spheres in a room: 17 blocks."""
+    """Above 8 blocks the kernel gates each block on its AABB per tile (its
+    sweeping threads over their compacted rays); the plain version sweeps
+    every block.  Nine spheres in a room: 17 blocks."""
     from pathtracerap_tpu_torch.scene.build import SceneBuilder, make_box_mesh, make_sphere_mesh
     from pathtracerap_tpu_torch.scene.types import Material, MaterialType as M
 
@@ -355,6 +365,16 @@ def test_worklist_kernels_above_313_blocks(dev, big_world):
     lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
     assert unit == world.tri_block and ray_tile == 512
     _check_bounce(world, pack, u_flat[:, 4:8][pix], lists, unit, ray_tile)
+    # from inside the room, where the bounce rays list many of the 391 blocks
+    ro, rd = generate_rays(CameraConfig(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0),
+                                        plane_y=(-48.0, 48.0), plane_z=120.0), (64, 32), device=dev)
+    rd = normalize(rd)
+    pack, u_flat = TM.first_wavefront(world, ro, rd, TT.trace_pallas(world, ro, rd), prng_key(2, dev),
+                                      0, 4, ro.shape[0], 6, True, 0)
+    pix = torch.arange(pack.shape[0], device=dev)
+    pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    _check_bounce(world, pack, u_flat[:, 4:8][pix], lists, unit, ray_tile, parities=(True,))
 
 
 def test_pallas_render_on_gpu_matches_cpu(dev):
@@ -416,6 +436,67 @@ def test_debug_fused_kernel_matches_fast(dev, world):
     dbg = TM.sample_fused(w16, prim, u[0], world, 5, False, False, debug=True)
     torch.cuda.synchronize()
     assert torch.equal(dbg, fast)
+
+
+# --------------------------------------------------------------------------
+# kernels 2 and 4 on tiles of chosen live counts, and without ops_tri
+# --------------------------------------------------------------------------
+
+# live rays of the first tiles: one, none, and either side of multiples of
+# R (1, 2, 4) and of a warp
+LIVE_PATTERN = (1, 0, 3, 5, 31, 33, 63, 65, 127, 129, 255)
+
+
+def _kill_outside_pattern(alive, tile: int):
+    """``alive`` (N,) bool with tile i cut to its first LIVE_PATTERN[i]
+    rays (later tiles left as they are)."""
+    alive = alive.clone()
+    for i, k in enumerate(LIVE_PATTERN):
+        alive[i * tile + k:(i + 1) * tile] = False
+    return alive
+
+
+@pytest.mark.parametrize("ray_tile", [256, 512])
+def test_bounce_kernel_on_live_patterns(dev, world, wavefront, ray_tile):
+    """Kernel 2 on sub-block worklists with tiles of one live ray, none,
+    and live counts either side of multiples of R and of a warp."""
+    pack, u = wavefront
+    pack = pack.clone()
+    pack[:, 9] = torch.where(_kill_outside_pattern(pack[:, 9] > 0, ray_tile), pack[:, 9], 0.0)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    _check_bounce(world, pack, u, lists, unit, ray_tile, parities=(True,))
+
+
+def test_fused_kernel_on_live_patterns(dev):
+    """Kernel 4 on the Cornell box with primary rows whose misses leave
+    tile i with LIVE_PATTERN[i] live rays after bounce 0: 8-sample batches
+    (parity and quality shading) and the emit_idx pass."""
+    world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
+    w16, prim, _ = _fused_case(world, dev, CORNELL_CAM, (64, 64), False)
+    n = w16.shape[0]
+    dead = ~_kill_outside_pattern(torch.ones(n, dtype=torch.bool, device=dev), TM.FUSED_TILE)
+    prim = prim.clone()
+    prim[dead] = 0.0
+    prim[dead, 0] = 9999999.0  # a miss at bounce 0 kills the ray
+    u = chunk_uniforms(prng_key(4, dev), range(8), 5, n, n).reshape(8, n, 20)
+    for parity in (True, False):
+        _check_fused(world, w16, prim, u, parity, True)
+    _check_fused(world, w16, prim, u[0], True, True, emit_idx=True)
+
+
+def test_kernels_raise_without_ops_tri(dev, world, wavefront):
+    """No fallback: a CUDA world without the triangle-major pack raises."""
+    import dataclasses
+
+    bare = dataclasses.replace(world, ops_tri=None)
+    pack, u = wavefront
+    ray_tile = TM.binned_ray_tile(world)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    with pytest.raises(ValueError, match="ops_tri is None"):
+        TM.bounce(pack, u, lists, unit, bare, ray_tile, True)
+    w16, prim, uu = _fused_case(world, dev, CameraConfig(), (32, 16), True)
+    with pytest.raises(ValueError, match="ops_tri is None"):
+        TM.sample_fused(w16, prim, uu[0], bare, 5, False, False)
 
 
 # --------------------------------------------------------------------------
