@@ -282,36 +282,28 @@ def bounce1_wavefront(world, dev, camera=None, resolution=RESOLUTION, bounces=MA
     return pack, u_flat[:, 4:8][pix], lists, unit, ray_tile
 
 
-def kernel_build(kernel: str, rays_per_thread: int) -> dict:
+def kernel_build(kernel: str) -> dict:
     """Registers, spills and shared memory of the fast instantiation of
-    kernel 2 (``bounce``) or 4 (``sample_fused``) at R rays per thread,
-    from the build log (``ptxas -v``)."""
+    kernel 2 (``bounce``) or 4 (``sample_fused``), from the build log
+    (``ptxas -v``)."""
     from pathtracerap_tpu_torch.kernels import _build
 
     mangled = {"bounce": "13bounce_kernel", "sample_fused": "19sample_fused_kernel"}[kernel]
     res = _build.kernel_resources()
-    (key,) = [k for k in res if f"{mangled}ILi{rays_per_thread}ELb0E" in k]
+    (key,) = [k for k in res if f"{mangled}ILb0E" in k]
     return res[key]
 
 
-def _by_rays_per_thread(run) -> dict:
-    """``run(rays_per_thread)`` timed at each R the kernels are built for."""
-    from pathtracerap_tpu_torch.kernels.megakernel import RAYS_PER_THREAD_CHOICES
-
-    return {r: cuda_ms(lambda r=r: run(r)) for r in RAYS_PER_THREAD_CHOICES}
-
-
-def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None, exact=True):
+def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None):
     """Kernel 2 against its plain version on bounce 1 of the first
     4-sample slab, the sorted wavefront ``render_samples_binned`` builds
-    (the plain version on its first ``plain_rows`` rows when given).  The
-    state is bit-equal wherever the hit index agrees; with ``exact`` the
-    index agrees on every live ray, so the state is bit-equal on every
-    ray.  Times at each R (rays per thread)."""
+    (the plain version on its first ``plain_rows`` rows when given):
+    the index equal on every live ray and the state bit-equal on every
+    ray."""
     import torch
 
     from pathtracerap_tpu_torch.kernels.megakernel import (
-        BOUNCE_RAYS_PER_THREAD as RAYS_PER_THREAD, bounce, bounce_plain,
+        BOUNCE_RAYS_PER_THREAD, bounce, bounce_plain,
     )
 
     pack, u_b, lists, unit, ray_tile = wavefront or bounce1_wavefront(world, dev)
@@ -349,15 +341,12 @@ def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None, exact=True):
     check(res["dead_pass_through"], "kernel 2 leaves dead rays unchanged")
     check(res["bit_equal_share_where_idx_agrees"] == 1.0,
           "kernel 2 state bit-equal wherever the index agrees")
-    if exact:
-        check(share == 1.0 and res["bit_equal_share"] == 1.0,
-              f"kernel 2 bit-equal: live index share {share}, state {res['bit_equal_share']}")
-    res["rays_per_thread"] = RAYS_PER_THREAD
-    res["ms_by_rays_per_thread"] = _by_rays_per_thread(
-        lambda r: bounce(pack, u_b, lists, unit, world, ray_tile, True, rays_per_thread=r))
-    res["ms"] = res["ms_by_rays_per_thread"][RAYS_PER_THREAD]
+    check(share == 1.0 and res["bit_equal_share"] == 1.0,
+          f"kernel 2 bit-equal: live index share {share}, state {res['bit_equal_share']}")
+    res["rays_per_thread"] = BOUNCE_RAYS_PER_THREAD
+    res["ms"] = cuda_ms(kern)
     res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
-    res.update(kernel_build("bounce", RAYS_PER_THREAD))
+    res.update(kernel_build("bounce"))
     res.update(bound(PAIR_FLOPS * list_pairs(lists, all_live, ray_tile, unit),
                      nbytes(pack, u_b, lists, world.ops_tri, world.attr_rows, *full_k)))
     return res
@@ -651,19 +640,20 @@ def train_step_vs_cpu(dev):
 def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=False):
     """Kernel 4 against its plain version on one set of inputs: the share
     of rays with every contribution within K4_ABS, the bit-equal share
-    (checked to be 1, and the index stream equal), the largest error,
-    times at each R (rays per thread), live rays per bounce, the (ray,
-    triangle) pairs the compacted sweep issues beside the live pairs, and
-    the bound."""
+    (checked to be 1, and the index stream equal), the largest error, the
+    time, live rays per bounce, the (ray, triangle) pairs the kernel's
+    sweeping warps issued and those of live rays, as its counter reports
+    them from one more launch (the live pairs checked against the plain
+    version's live rays), and the bound."""
     import torch
 
     from pathtracerap_tpu_torch.kernels.megakernel import (
-        FUSED_RAYS_PER_THREAD as RAYS_PER_THREAD, FUSED_TILE, sample_fused, sample_fused_plain,
-        sweep_operands,
+        FUSED_TILE, GATE_BLOCKS, sample_fused, sample_fused_plain, sweep_operands,
     )
 
-    def kern():
-        return sample_fused(w16, prim, u, world, bounces, parity, use_primary, emit_idx)
+    def kern(pairs=None):
+        return sample_fused(w16, prim, u, world, bounces, parity, use_primary, emit_idx,
+                            pairs=pairs)
 
     def plain(live=None):
         return sample_fused_plain(w16, prim, u, world, bounces, parity, use_primary, emit_idx, live)
@@ -683,11 +673,6 @@ def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=F
     traced = int(traced_masks.sum().item())
     _, n_tris = sweep_operands(world)
     n_tris = min(n_tris, world.block_aabb.shape[0] * world.tri_block)
-    # per (sample, traced bounce, tile): ceil(live / R) sweeping threads,
-    # a warp issuing all 32 of its lanes' R rays
-    tile_live = traced_masks.reshape(-1, FUSED_TILE).sum(dim=1)
-    sweepers = (tile_live + RAYS_PER_THREAD - 1) // RAYS_PER_THREAD
-    issued = int(((sweepers + 31) // 32 * 32 * RAYS_PER_THREAD).sum().item())
     res = {
         "rays": n, "samples": ns, "bounces": bounces, "parity": parity,
         "use_primary": use_primary, "emit_idx": emit_idx, "live_per_bounce": live,
@@ -706,16 +691,20 @@ def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=F
         res["idx_equal_share"] = share
         check(share >= K4_IDX_SHARE, f"kernel 4 idx equal share {share} >= {K4_IDX_SHARE}")
         check(bool(torch.equal(idx_k, idx_p)), "kernel 4 index stream equal")
-    res["rays_per_thread"] = RAYS_PER_THREAD
-    res["ms_by_rays_per_thread"] = _by_rays_per_thread(
-        lambda r: sample_fused(w16, prim, u, world, bounces, parity, use_primary, emit_idx,
-                               rays_per_thread=r))
-    res["ms"] = res["ms_by_rays_per_thread"][RAYS_PER_THREAD]
+    res["rays_per_thread"] = 1  # kernel 4 sweeps one ray a thread
+    res["ms"] = cuda_ms(kern)
     res["plain_ms"] = cuda_ms(plain)
-    res.update(kernel_build("sample_fused", RAYS_PER_THREAD))
+    res.update(kernel_build("sample_fused"))
     res["sweep_triangles"] = n_tris
-    res["pairs_live"] = traced * n_tris
-    res["pairs_swept"] = issued * n_tris
+    pairs = torch.zeros((n // FUSED_TILE, 2), dtype=torch.int64, device=w16.device)
+    counted = kern(pairs)
+    counted = counted[0] if emit_idx else counted
+    check(bool(torch.equal(counted.view(torch.int32), out_k.view(torch.int32))),
+          "kernel 4 gives the same contribution with its pair counter")
+    res["pairs_swept"], res["pairs_live"] = (int(x) for x in pairs.sum(dim=0).tolist())
+    if world.block_aabb.shape[0] <= GATE_BLOCKS:  # ungated: every real triangle per live ray
+        check(res["pairs_live"] == traced * n_tris,
+              f"kernel 4 swept {res['pairs_live']} live pairs, {traced} live rays x {n_tris}")
     # the sweep visits every real triangle for every live traced ray-bounce
     res.update(bound(PAIR_FLOPS * traced * n_tris,
                      nbytes(w16, prim, u, world.ops_tri, world.attr_rows, *outs)))
@@ -1284,11 +1273,10 @@ def megascene_render(dev):
     res["kernel1"] = kernel1_vs_plain(world, dev, _ROOM_CAMERA, res_xy, plain_rows=PLAIN_SLICE)
     wavefront = bounce1_wavefront(world, dev, _ROOM_CAMERA, res_xy, bounces)
     check(wavefront[2].shape[1] == MEGASCENE_BLOCKS, "bounce worklists are 701 blocks wide")
-    res["kernel2"] = kernel2_vs_plain(world, dev, wavefront, plain_rows=PLAIN_SLICE, exact=False)
+    res["kernel2"] = kernel2_vs_plain(world, dev, wavefront, plain_rows=PLAIN_SLICE)
     # from inside the room the sorted bounce rays list many of the 701 blocks
     inside = bounce1_wavefront(world, dev, CameraConfig(**INSIDE_CAMERA), res_xy, bounces)
-    res["kernel2_inside"] = kernel2_vs_plain(world, dev, inside, plain_rows=PLAIN_SLICE,
-                                             exact=False)
+    res["kernel2_inside"] = kernel2_vs_plain(world, dev, inside, plain_rows=PLAIN_SLICE)
     return res
 
 
@@ -1841,8 +1829,8 @@ def main() -> int:
         out.update({key: k[key] for key in extra})
         return out
 
-    # kernels 2 and 4: R, the build's registers and spills, the time at each R
-    sweep = ("rays_per_thread", "registers", "spill_stores", "spill_loads", "ms_by_rays_per_thread")
+    # kernels 2 and 4: rays a thread sweeps, the build's registers and spills
+    sweep = ("rays_per_thread", "registers", "spill_stores", "spill_loads")
 
     pallas = "pathtracerap_tpu/pallas/"
     k4q = k4["traced_jittered"]  # the quality render's launch, its main path

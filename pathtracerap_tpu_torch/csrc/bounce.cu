@@ -9,83 +9,162 @@
 // ties to the lowest global index), reads the winner's attribute rows and
 // is shaded with this bounce's 4 uniforms into a new 10-column state
 // [orig, dir, color, remaining].  Dead rays keep their state.  The hit
-// triangle's index (-1: miss, or a tile with no live ray) is written too.
+// triangle's index (-1: miss, or a dead ray) is written too.
 //
-// What bounds it on the H100: as kernel 1, FP32 FMA issue in the sweep --
-// about 50 flops per (ray, triangle) against 88 bytes of shared operands;
-// the shading is a few hundred flops per ray, once.  The design: one thread
-// block per 256-ray tile, one thread per ray; the worklist holds
-// 128-triangle sub-block ids (or whole blocks above 64 blocks), sorted by
-// the tile's entry distance; for each entry the threads stage its 22
-// operand rows (11 KB) in shared memory and sweep it.  The TPU's groups of
-// four sub-blocks, its one-hot attribute matmul and its lane-major shading
-// layout are TPU devices and are not carried over: the winner's attributes
-// are read directly from the (16, T) attribute rows.
+// What bounds it on the H100: the sweep -- about 40 instructions per
+// (ray, triangle) pair over the tile's worklist (22 FMAs, the determinant,
+// may_accept), issued at about 2 warp-instructions per SM clock; the
+// shading is a few hundred flops per ray, once.  The first port (one
+// thread per ray, 22 scalar shared loads and a division per pair, two
+// barriers and a synchronous staging per worklist entry) was bound by the
+// SM's shared-memory load pipe.  The design now: one thread block per ray
+// tile of `ray_tile / R` threads, R = 2 (kRays); each thread owns R rays
+// of the sorted tile, strided by `ray_tile / R` so that
+// the state loads and stores stay coalesced, keeps their ray vectors and
+// bests in registers and sweeps them together (common.cuh sweep_rays: six
+// 16-byte shared loads a triangle for R rays, the division only where a
+// ray may be accepted).  The wavefront is sorted with dead rays last, so
+// the live rays of a tile are a prefix: in a tile with fewer live rays
+// than threads (the megascene's tail) the threads and warps past them own
+// no live ray and skip the sweep.  The worklist holds 128-triangle
+// sub-block ids (or whole blocks above 64 blocks, four runs an entry),
+// sorted by the tile's entry distance; its 128-triangle runs of the
+// triangle-major pack are staged by 16-byte cp.async into two shared
+// buffers, run j + 1 landing while run j is swept, one barrier a run, and
+// the sweep stops at the last real triangle (padding is never accepted).
+// Then each thread re-reads its rays' states and shades them one by one.
+// R = 2 measured as fast as R = 1 within the spread of runs, and R = 4
+// slower (PERF.md).  The TPU's groups of four sub-blocks, its one-hot
+// attribute matmul and its lane-major shading layout are TPU devices and
+// are not carried over: the winner's attributes are read directly from
+// the (16, T) attribute rows.
 //
 // The shading is csrc/shade.cuh's, which kernel 4 shares.
 
 #include "shade.cuh"
 
+namespace {
+
+constexpr int kSweepRun = 128;  // triangles staged per shared-memory run
+// rays a thread carries through the sweep (R): chosen on the card, PERF.md
+// (kernels/megakernel.py BOUNCE_RAYS_PER_THREAD mirrors it)
+constexpr int kRays = 2;
+
+// The runs of a tile's worklist in sweep order: entry j's `unit / kSweepRun`
+// runs in ascending order, entries until the first -1, runs from the last
+// real triangle on dropped.
+struct RunCursor {
+  const int* row;
+  int list_w, unit, n_tris, j, off, id;
+
+  __device__ void start() {
+    j = 0;
+    off = 0;
+    id = list_w > 0 ? row[0] : -1;
+    skip();
+  }
+  __device__ bool done() const { return id < 0; }
+  __device__ int g0() const { return id * unit + off; }
+  __device__ void skip() {
+    while (id >= 0 && id * unit + off >= n_tris) {
+      ++j;
+      off = 0;
+      id = j < list_w ? row[j] : -1;
+    }
+  }
+  __device__ void next() {
+    off += kSweepRun;
+    if (off >= unit) {
+      ++j;
+      off = 0;
+      id = j < list_w ? row[j] : -1;
+    }
+    skip();
+  }
+};
+
+}  // namespace
+
 // Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
 template <bool Debug>
-__global__ void bounce_kernel(const float* __restrict__ state,  // (N, 10)
-                              const float* __restrict__ uni,    // (N, 4)
-                              const int* __restrict__ lists,    // (nt, list_w)
+__global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
+                              const float* __restrict__ uni,      // (N, 4)
+                              const int* __restrict__ lists,      // (nt, list_w)
                               int list_w, int unit,
-                              const float* __restrict__ ops,    // (16, 4 * attr_cols)
-                              const float* __restrict__ attr,   // (16, attr_cols)
-                              int attr_cols, int tri_block, int parity,
-                              float* __restrict__ out,          // (N, 10)
-                              int* __restrict__ idx_out) {      // (N,) hit or -1
-  extern __shared__ float sm[];
+                              const float* __restrict__ ops_tri,  // (T, 24) triangle-major pack
+                              int n_tris,                         // real triangles
+                              const float* __restrict__ attr,     // (16, attr_cols)
+                              int attr_cols, int parity,
+                              float* __restrict__ out,            // (N, 10)
+                              int* __restrict__ idx_out) {        // (N,) hit or -1
+  __shared__ float4 run[2][kSweepRun * 6];
   const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  float s[10];
-  for (int k = 0; k < 10; ++k) s[k] = state[ray * 10 + k];
-  if (!__syncthreads_or(s[9] > 0.0f)) {  // no live ray in the tile
-    for (int k = 0; k < 10; ++k) out[ray * 10 + k] = s[k];
-    idx_out[ray] = -1;
+  // this thread's rays: base + k * stride, k < kRays
+  const int stride = blockDim.x;
+  const size_t base = (size_t)tile * stride * kRays + threadIdx.x;
+
+  RayVec r[kRays];
+  float best[kRays];
+  int best_idx[kRays];
+  bool live = false;  // whether any of this thread's rays is live
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const float* sk = state + (base + (size_t)k * stride) * 10;
+    float s[10];
+    for (int c = 0; c < 10; ++c) s[c] = sk[c];
+    live = live || s[9] > 0.0f;
+    r[k] = state_ray(s);
+    best[k] = PTT_F_MAX;
+    best_idx[k] = -1;
+  }
+  if (!__syncthreads_or(live)) {  // no live ray in the tile
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const size_t ray = base + (size_t)k * stride;
+      for (int c = 0; c < 10; ++c) out[ray * 10 + c] = state[ray * 10 + c];
+      idx_out[ray] = -1;
+    }
     return;
   }
-  const RayVec r = state_ray(s);
 
-  float best = PTT_F_MAX;
-  int best_idx = -1;
-  const int* row = lists + (size_t)tile * list_w;
-  for (int j = 0; j < list_w; ++j) {
-    const int id = row[j];
-    if (id < 0) break;  // -1 padding is a suffix of the row
-    __syncthreads();
-    stage_ops(sm, ops, 4 * attr_cols, id * unit, unit, tri_block);
-    __syncthreads();
-    sweep<Debug>(sm, unit, id * unit, r, best, best_idx);
+  RunCursor cur = {lists + (size_t)tile * list_w, list_w, unit, n_tris, 0, 0, -1};
+  cur.start();
+  if (!cur.done()) stage_tri_async(run[0], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
+  for (int buf = 0; !cur.done(); buf ^= 1) {
+    const int g0 = cur.g0();
+    const int width = min(kSweepRun, n_tris - g0);
+    cur.next();
+    cp_async_wait_all();
+    __syncthreads();  // run `buf` is in for every thread; run buf ^ 1 is no longer read
+    if (!cur.done()) {
+      stage_tri_async(run[buf ^ 1], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
+    }
+    if (live) sweep_rays<kRays, Debug>(run[buf], width, g0, r, best, best_idx);
   }
 
-  Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
-  if (best_idx >= 0) {
-    const float* c = attr + best_idx;
-    const size_t ld = attr_cols;
-    a.n = {c[0 * ld], c[1 * ld], c[2 * ld]};
-    a.mt = c[3 * ld];
-    a.rgb = {c[4 * ld], c[5 * ld], c[6 * ld]};
-    a.gn = {c[7 * ld], c[8 * ld], c[9 * ld]};
-    a.ri = c[11 * ld];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t ray = base + (size_t)k * stride;
+    float s[10];
+    for (int c = 0; c < 10; ++c) s[c] = state[ray * 10 + c];
+    const bool alive = s[9] > 0.0f;
+    Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
+    if (alive && best_idx[k] >= 0) a = read_attrs(attr, attr_cols, best_idx[k]);
+    shade(s, best[k], a, uni + ray * 4, parity != 0);  // a dead ray passes through
+    for (int c = 0; c < 10; ++c) out[ray * 10 + c] = s[c];
+    idx_out[ray] = alive ? best_idx[k] : -1;
   }
-  shade(s, best, a, uni + ray * 4, parity != 0);
-  for (int k = 0; k < 10; ++k) out[ray * 10 + k] = s[k];
-  idx_out[ray] = best_idx;
 }
 
 extern "C" int ptt_bounce(const float* state, const float* uni, const int* lists, int nt,
-                          int list_w, int unit, int ray_tile, const float* ops,
-                          const float* attr, int attr_cols, int tri_block, int parity,
-                          float* out, int* idx_out, int debug, void* stream) {
+                          int list_w, int unit, int ray_tile, const float* ops_tri, int n_tris,
+                          const float* attr, int attr_cols, int parity, float* out, int* idx_out,
+                          int debug, void* stream) {
   if (nt == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)PTT_ROWS * unit * sizeof(float);
-  auto kernel = debug ? bounce_kernel<true> : bounce_kernel<false>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<nt, ray_tile, smem, (cudaStream_t)stream>>>(
-      state, uni, lists, list_w, unit, ops, attr, attr_cols, tri_block, parity, out, idx_out);
-  return (int)cudaGetLastError();
+  if (ray_tile % (32 * kRays)) return (int)cudaErrorInvalidValue;
+  void* kernel = debug ? (void*)bounce_kernel<true> : (void*)bounce_kernel<false>;
+  void* args[] = {&state, &uni, &lists, &list_w, &unit, &ops_tri, &n_tris,
+                  &attr,  &attr_cols, &parity, &out, &idx_out};
+  return (int)cudaLaunchKernel(kernel, dim3(nt), dim3(ray_tile / kRays), args, 0,
+                               (cudaStream_t)stream);
 }

@@ -23,17 +23,18 @@
 // loads and a division per pair, every lane of a warp with one live lane
 // sweeping, the padding of the last block swept too) was bound by the SM's
 // shared-memory load pipe.  The design now:
-//  * one thread block per 256-ray tile of 256 / R threads; each thread owns
-//    R rays (strided by 256 / R), their 10-word states [orig, dir, color,
-//    remaining] in registers for the whole sample, and reads the attributes
-//    and shades them (uniforms and idx_out in the original ray order);
+//  * one thread block per 256-ray tile, one thread per ray: its 10-word
+//    state [orig, dir, color, remaining] stays in registers for the whole
+//    sample, and the thread reads the attributes and shades it (uniforms
+//    and idx_out in the original ray order);
 //  * live-ray compaction at each traced bounce: every live ray writes its
 //    ray vector to a compacted slot in shared memory (warp ballots plus a
-//    block prefix), and the first ceil(live / R) threads sweep R compacted
-//    rays each (common.cuh sweep_rays: six 16-byte loads a triangle for R
-//    rays, the division only where may_accept cannot reject the pair), then
-//    hand (t, index) back through shared memory to the owner.  Which thread
-//    sweeps a ray changes no bit of its result; no dead lane sweeps;
+//    block prefix), and the first `live` threads sweep one compacted ray
+//    each (common.cuh sweep_rays: six 16-byte loads a triangle, the
+//    division only where may_accept cannot reject the pair), then hand
+//    (t, index) back through shared memory to the owner.  Which thread
+//    sweeps a ray changes no bit of its result; no dead lane sweeps, only
+//    the last sweeping warp's surplus lanes idle;
 //  * the sweep stops at the last real triangle (n_tris): padding columns are
 //    zero, det = 0 gives t = NaN, which the accept chain rejects in both
 //    forms, so the cut is exact;
@@ -45,13 +46,16 @@
 //    mbarrier's phase tracking would buy nothing);
 //  * above 8 blocks (GATE_BLOCKS, kernels/megakernel.py) the tile skips a
 //    block that no live ray's slab test reaches within its current best
-//    (the TPU kernel's gate), evaluated by the sweeping threads over their
+//    (the TPU kernel's gate), evaluated by the sweeping threads on their
 //    rays with __syncthreads_or; it never changes a hit.
 // On the card the sweep then issues about 40 instructions a pair (22 FMAs,
-// the determinant, may_accept) at about 2 warp-instructions per SM clock
-// whatever R is: the loads no longer bound it, and R = 1 (the most resident
-// warps) is as fast as R = 4 on the quality slab and faster on the Cornell
-// batch (PERF.md), so FUSED_RAYS_PER_THREAD is 1.
+// the determinant, may_accept) at about 2 warp-instructions per SM clock:
+// the loads no longer bound it.  Several rays a thread (one triangle's
+// loads serving 2 or 4 rays) measured no faster on the quality slab and
+// slower on the Cornell batch (PERF.md), so a thread sweeps one ray.
+// `pairs`, when given, receives each tile's count of the (ray, triangle)
+// pairs its sweeping warps issued (every lane of a warp that sweeps) and
+// of those of live rays: what the compaction and the gate left to sweep.
 // A sample batch is a loop over samples that sums in registers, where the
 // TPU carried the sum across a sequential grid dimension in VMEM.  The TPU
 // kernel's bf16x3 MXU products, one-hot attribute matmul and lane-major
@@ -99,51 +103,42 @@ __device__ __forceinline__ bool box_reaches(const float* __restrict__ box, const
 }
 
 // Whether any live ray of the tile reaches block blk: each sweeping thread
-// tests its own compacted rays; every thread of the block must call it.
-template <int R>
+// tests its compacted ray; every thread of the block must call it.
 __device__ __forceinline__ bool tile_reaches(const float* __restrict__ aabb, int blk,
-                                             const RayVec (&r)[R], const float (&best)[R],
-                                             int nsw, int n_live, float margin) {
+                                             const RayVec& r, float best, bool sweeper,
+                                             float margin) {
   bool any = false;
-  if ((int)threadIdx.x < nsw) {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      if ((int)threadIdx.x + k * nsw < n_live) {
-        float inv[3];
-        ray_inv(r[k], inv);
-        any = any || box_reaches(aabb + (size_t)blk * 8, r[k], inv, margin, best[k]);
-      }
-    }
+  if (sweeper) {
+    float inv[3];
+    ray_inv(r, inv);
+    any = box_reaches(aabb + (size_t)blk * 8, r, inv, margin, best);
   }
   return __syncthreads_or(any);
 }
 
 // The nearest hit of the tile's n_live compacted rays (sm.ray): the first
-// ceil(n_live / R) threads sweep R rays each (slots tid + k * nsw) over the
-// real triangles [0, n_tris), block by block; the results land in
-// sm.res_t / sm.res_i by slot.  Every thread of the block must call it.
-template <int R, bool Debug>
-__device__ __forceinline__ void trace_compacted(FusedSmem& sm, int n_live,
-                                                const float* __restrict__ ops_tri, int n_tris,
-                                                const float* __restrict__ aabb, int n_blocks,
-                                                int tri_block, int gated, float margin) {
+// n_live threads sweep one ray each (slot tid) over the real triangles
+// [0, n_tris), block by block; the results land in sm.res_t / sm.res_i by
+// slot.  Returns the triangles swept (gated blocks skipped).  Every thread
+// of the block must call it.
+template <bool Debug>
+__device__ __forceinline__ int trace_compacted(FusedSmem& sm, int n_live,
+                                               const float* __restrict__ ops_tri, int n_tris,
+                                               const float* __restrict__ aabb, int n_blocks,
+                                               int tri_block, int gated, float margin) {
   const int tid = threadIdx.x;
-  const int nsw = (n_live + R - 1) / R;
-  const bool sweeper = tid < nsw;
-  RayVec r[R];
-  float best[R];
-  int best_idx[R];
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    const int slot = min(tid + k * nsw, n_live - 1);  // surplus lanes repeat a live ray
-    r[k] = {sm.ray[0][slot], sm.ray[1][slot], sm.ray[2][slot], sm.ray[3][slot], sm.ray[4][slot],
-            sm.ray[5][slot], sm.ray[6][slot], sm.ray[7][slot], sm.ray[8][slot]};
-    best[k] = PTT_F_MAX;
-    best_idx[k] = -1;
-  }
+  const bool sweeper = tid < n_live;
+  const int slot = min(tid, n_live - 1);  // surplus lanes read a live ray and sweep none
+  // sweep_rays' one-ray form
+  RayVec r[1] = {{sm.ray[0][slot], sm.ray[1][slot], sm.ray[2][slot], sm.ray[3][slot],
+                  sm.ray[4][slot], sm.ray[5][slot], sm.ray[6][slot], sm.ray[7][slot],
+                  sm.ray[8][slot]}};
+  float best[1] = {PTT_F_MAX};
+  int best_idx[1] = {-1};
+  int swept = 0;
 
   int blk = 0;
-  while (gated && blk < n_blocks && !tile_reaches<R>(aabb, blk, r, best, nsw, n_live, margin)) {
+  while (gated && blk < n_blocks && !tile_reaches(aabb, blk, r[0], best[0], sweeper, margin)) {
     ++blk;
   }
   int run = 0, buf = 0;
@@ -166,10 +161,11 @@ __device__ __forceinline__ void trace_compacted(FusedSmem& sm, int n_live,
       const int g1 = next_blk * tri_block + next_run;
       stage_tri_async(sm.run[buf ^ 1], ops_tri, g1, min(kSweepRun, n_tris - g1));
     }
-    if (sweeper) sweep_rays<R, Debug>(sm.run[buf], width, g0, r, best, best_idx);
+    if (sweeper) sweep_rays<1, Debug>(sm.run[buf], width, g0, r, best, best_idx);
+    swept += width;
     if (block_ends && gated) {
       while (next_blk < n_blocks &&
-             !tile_reaches<R>(aabb, next_blk, r, best, nsw, n_live, margin)) {
+             !tile_reaches(aabb, next_blk, r[0], best[0], sweeper, margin)) {
         ++next_blk;
       }
       if (next_blk < n_blocks) {
@@ -183,24 +179,18 @@ __device__ __forceinline__ void trace_compacted(FusedSmem& sm, int n_live,
   }
 
   if (sweeper) {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int slot = tid + k * nsw;
-      if (slot < n_live) {
-        sm.res_t[slot] = best[k];
-        sm.res_i[slot] = best_idx[k];
-      }
-    }
+    sm.res_t[tid] = best[0];
+    sm.res_i[tid] = best_idx[0];
   }
   __syncthreads();
+  return swept;
 }
 
 }  // namespace
 
-// R: rays each thread owns and sweeps; Debug: the explicit-mask accept
-// chain of PTAP_DEBUG=1 (common.cuh).
-template <int R, bool Debug>
-__global__ void __launch_bounds__(kFusedTile / R)
+// Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
+template <bool Debug>
+__global__ void __launch_bounds__(kFusedTile)
 sample_fused_kernel(const float* __restrict__ w16,      // (N, 16) [dir, o x dir, orig, -1, 1, 0...]
                     const float* __restrict__ prim,     // (N, 16) [t, n, mt, rgb, gn, idx+1, ri, 0..]
                     const float* __restrict__ uni,      // (ns, N, 4 * max_bounces)
@@ -213,106 +203,86 @@ sample_fused_kernel(const float* __restrict__ w16,      // (N, 16) [dir, o x dir
                     const float* __restrict__ margin,   // (1,)
                     int n_blocks, int tri_block, int parity, int use_primary, int gated,
                     float* __restrict__ out,            // (N, 3)
-                    int* __restrict__ idx_out) {        // (N, max_bounces) or null
-  constexpr int kThreads = kFusedTile / R, kW = kThreads / 32;  // R * kW == kWarps
+                    int* __restrict__ idx_out,          // (N, max_bounces) or null
+                    unsigned long long* __restrict__ pairs) {  // (N / kFusedTile, 2) or null
   __shared__ FusedSmem sm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // this thread's rays: ray0 + k * kThreads, k < R
-  const size_t ray0 = (size_t)blockIdx.x * kFusedTile + threadIdx.x;
+  const size_t ray = (size_t)blockIdx.x * kFusedTile + threadIdx.x;
   const int ucols = 4 * max_bounces;
   const float slack = gated ? margin[0] : 0.0f;
-  float acc[R][3];
-  float s[R][10];
+  float acc[3];
+  float s[10];
   int pass = 0;  // traced bounces so far: picks the warp_live buffer
+  // (ray, triangle) pairs of the sweeping warps' lanes, and of live rays
+  unsigned long long issued = 0, live_pairs = 0;
 
   for (int smp = 0; smp < ns; ++smp) {
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const float* wr = w16 + (ray0 + k * kThreads) * 16;
-      const float init[10] = {wr[6], wr[7], wr[8], wr[0], wr[1], wr[2], 1.0f, 1.0f, 1.0f,
-                              (float)max_bounces};
-      for (int c = 0; c < 10; ++c) s[k][c] = init[c];
-    }
+    const float* wr = w16 + ray * 16;
+    const float init[10] = {wr[6], wr[7], wr[8], wr[0], wr[1], wr[2], 1.0f, 1.0f, 1.0f,
+                            (float)max_bounces};
+    for (int c = 0; c < 10; ++c) s[c] = init[c];
     for (int b = 0; b < max_bounces; ++b) {
       const bool traced = !(b == 0 && use_primary);
-      int n_live = 0, slot[R];
+      const bool alive = s[9] > 0.0f;
+      int n_live = 0, slot = 0;
       if (traced) {
-        // compaction: each live ray's slot among the tile's live rays, in
-        // (k, warp, lane) order
+        // compaction: this ray's slot among the tile's live rays, in (warp, lane) order
         int* wl = sm.warp_live[pass & 1];
         ++pass;
-        unsigned live[R];
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-          live[k] = __ballot_sync(0xffffffffu, s[k][9] > 0.0f);
-          if (lane == 0) wl[k * kW + warp] = __popc(live[k]);
-          slot[k] = __popc(live[k] & ((1u << lane) - 1u));
-        }
+        const unsigned live = __ballot_sync(0xffffffffu, alive);
+        if (lane == 0) wl[warp] = __popc(live);
+        slot = __popc(live & ((1u << lane) - 1u));
         __syncthreads();
         for (int e = 0; e < kWarps; ++e) {
           const int c = wl[e];
           n_live += c;
-#pragma unroll
-          for (int k = 0; k < R; ++k) slot[k] += e < k * kW + warp ? c : 0;
+          slot += e < warp ? c : 0;
         }
         if (n_live > 0) {  // the tile has a live ray
-#pragma unroll
-          for (int k = 0; k < R; ++k) {
-            if (s[k][9] > 0.0f) {
-              const RayVec r = state_ray(s[k]);
-              const float v[9] = {r.d0, r.d1, r.d2, r.m0, r.m1, r.m2, r.o0, r.o1, r.o2};
-              for (int j = 0; j < 9; ++j) sm.ray[j][slot[k]] = v[j];
-            }
+          if (alive) {
+            const RayVec r = state_ray(s);
+            const float v[9] = {r.d0, r.d1, r.d2, r.m0, r.m1, r.m2, r.o0, r.o1, r.o2};
+            for (int j = 0; j < 9; ++j) sm.ray[j][slot] = v[j];
           }
           __syncthreads();
-          trace_compacted<R, Debug>(sm, n_live, ops_tri, n_tris, aabb, n_blocks, tri_block, gated,
-                                    slack);
+          const int swept = trace_compacted<Debug>(sm, n_live, ops_tri, n_tris, aabb, n_blocks,
+                                                   tri_block, gated, slack);
+          issued += (unsigned long long)swept * (unsigned)((n_live + 31) & ~31);
+          live_pairs += (unsigned long long)swept * (unsigned)n_live;
         }
       }
-#pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const size_t ray = ray0 + k * kThreads;
-        const bool alive = s[k][9] > 0.0f;
-        float t = PTT_F_MAX;
-        int idx1 = 0;
-        Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
-        if (!traced) {
-          const float* pr = prim + ray * 16;
-          t = pr[0];
-          a.n = {pr[1], pr[2], pr[3]};
-          a.mt = pr[4];
-          a.rgb = {pr[5], pr[6], pr[7]};
-          a.gn = {pr[8], pr[9], pr[10]};
-          idx1 = (int)pr[11];
-          a.ri = pr[12];
-        } else if (alive && n_live > 0) {
-          t = sm.res_t[slot[k]];
-          const int best_idx = sm.res_i[slot[k]];
-          if (best_idx >= 0) a = read_attrs(attr, attr_cols, best_idx);
-          idx1 = best_idx + 1;  // best_idx is -1 exactly when t is FLOAT_MAX
-        }
-        if (idx_out) idx_out[ray * max_bounces + b] = alive ? idx1 : 0;
-        const float* u = uni + ((size_t)smp * n + ray) * ucols;
-        shade(s[k], t, a, u + 4 * b, parity != 0);  // a dead ray passes through
+      float t = PTT_F_MAX;
+      int idx1 = 0;
+      Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
+      if (!traced) {
+        const float* pr = prim + ray * 16;
+        t = pr[0];
+        a.n = {pr[1], pr[2], pr[3]};
+        a.mt = pr[4];
+        a.rgb = {pr[5], pr[6], pr[7]};
+        a.gn = {pr[8], pr[9], pr[10]};
+        idx1 = (int)pr[11];
+        a.ri = pr[12];
+      } else if (alive && n_live > 0) {
+        t = sm.res_t[slot];
+        const int best_idx = sm.res_i[slot];
+        if (best_idx >= 0) a = read_attrs(attr, attr_cols, best_idx);
+        idx1 = best_idx + 1;  // best_idx is -1 exactly when t is FLOAT_MAX
       }
+      if (idx_out) idx_out[ray * max_bounces + b] = alive ? idx1 : 0;
+      const float* u = uni + ((size_t)smp * n + ray) * ucols;
+      shade(s, t, a, u + 4 * b, parity != 0);  // a dead ray passes through
     }
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      for (int c = 0; c < 3; ++c) {
-        const float v = sqrtf(clamp_min(s[k][6 + c], 0.0f));
-        acc[k][c] = smp == 0 ? v : acc[k][c] + v;
-      }
+    for (int c = 0; c < 3; ++c) {
+      const float v = sqrtf(clamp_min(s[6 + c], 0.0f));
+      acc[c] = smp == 0 ? v : acc[c] + v;
     }
   }
-#pragma unroll
-  for (int k = 0; k < R; ++k) {
-    for (int c = 0; c < 3; ++c) out[(ray0 + k * kThreads) * 3 + c] = acc[k][c];
+  for (int c = 0; c < 3; ++c) out[ray * 3 + c] = acc[c];
+  if (pairs != nullptr && threadIdx.x == 0) {
+    pairs[2 * blockIdx.x] = issued;
+    pairs[2 * blockIdx.x + 1] = live_pairs;
   }
-}
-
-template <int R>
-static void* fused_kernel(int debug) {
-  return debug ? (void*)sample_fused_kernel<R, true> : (void*)sample_fused_kernel<R, false>;
 }
 
 extern "C" int ptt_sample_fused(const float* w16, const float* prim, const float* uni, int n,
@@ -320,16 +290,12 @@ extern "C" int ptt_sample_fused(const float* w16, const float* prim, const float
                                 const float* attr, int attr_cols, const float* aabb,
                                 const float* margin, int n_blocks, int tri_block, int parity,
                                 int use_primary, int gated, float* out, int* idx_out,
-                                int rays_per_thread, int debug, void* stream) {
+                                unsigned long long* pairs, int debug, void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  void* kernel = rays_per_thread == 1   ? fused_kernel<1>(debug)
-                 : rays_per_thread == 2 ? fused_kernel<2>(debug)
-                 : rays_per_thread == 4 ? fused_kernel<4>(debug)
-                                        : nullptr;
-  if (!kernel) return (int)cudaErrorInvalidValue;
+  void* kernel = debug ? (void*)sample_fused_kernel<true> : (void*)sample_fused_kernel<false>;
   void* args[] = {&w16,    &prim,   &uni,  &n,        &ns,          &max_bounces, &ops_tri,
                   &n_tris, &attr,   &attr_cols, &aabb, &margin,     &n_blocks,    &tri_block,
-                  &parity, &use_primary, &gated, &out, &idx_out};
-  return (int)cudaLaunchKernel(kernel, dim3(n / kFusedTile), dim3(kFusedTile / rays_per_thread),
-                               args, 0, (cudaStream_t)stream);
+                  &parity, &use_primary, &gated, &out, &idx_out, &pairs};
+  return (int)cudaLaunchKernel(kernel, dim3(n / kFusedTile), dim3(kFusedTile), args, 0,
+                               (cudaStream_t)stream);
 }

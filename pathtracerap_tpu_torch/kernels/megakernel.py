@@ -59,13 +59,10 @@ FUSED_SLAB_TILES = 64  # fused facade slab, in 8192-ray RNG tiles
 GATE_BLOCKS = 8  # the fused sweep gates blocks on their AABB above this many
 SWEEP_RUN = 128  # triangles kernels 2 and 4 stage per shared-memory run
 FUSED_TILE = 256  # rays per thread block of kernel 4 (csrc/megakernel.cu kFusedTile)
-# Rays each thread of kernels 2 and 4 carries through the sweep (R): one
-# triangle's operands, loaded from shared memory once, serve R rays.  The
-# kernels are compiled for each of RAYS_PER_THREAD_CHOICES; the defaults
-# are the fastest on the H100 (PERF.md).
-RAYS_PER_THREAD_CHOICES = (1, 2, 4)
+# Rays each thread of kernel 2 carries through the sweep (csrc/bounce.cu
+# kRays): one triangle's operands, loaded from shared memory once, serve
+# them all.  Kernel 4 sweeps one ray a thread.
 BOUNCE_RAYS_PER_THREAD = 2
-FUSED_RAYS_PER_THREAD = 1
 
 
 def use_sub_blocks(world: WorldTriangles) -> bool:
@@ -135,13 +132,6 @@ def _shade_pack(pack: torch.Tensor, hits: HitRecord, u: torch.Tensor, parity: bo
     return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1)
 
 
-def _rays_per_thread(rays_per_thread, default: int) -> int:
-    r = default if rays_per_thread is None else rays_per_thread
-    if r not in RAYS_PER_THREAD_CHOICES:
-        raise ValueError(f"rays_per_thread must be one of {RAYS_PER_THREAD_CHOICES}, got {r}")
-    return r
-
-
 def sweep_operands(world: WorldTriangles):
     """What kernels 2 and 4 stage: ``(ops_tri, n_tris)``, the world's
     (T, 24) triangle-major pack, checked, and the count of real
@@ -187,17 +177,13 @@ def bounce(
     ray_tile: int,
     parity: bool,
     debug: bool = None,
-    rays_per_thread: int = None,
 ):
     """One binned bounce: nearest hit over each tile's worklist, then
     shading.  Returns (new state, hit triangle index or -1; -1 as well
-    for a dead ray).  ``debug`` selects the
-    explicit-mask accept chain (None: ``PTAP_DEBUG``); ``rays_per_thread``
-    the kernel's R (None: ``BOUNCE_RAYS_PER_THREAD``), which changes no bit of the
-    result.  Launches kernel 2 for CUDA tensors (counted in
-    ``bounce.launches``), runs the plain version for CPU ones."""
+    for a dead ray).  ``debug`` selects the explicit-mask accept chain
+    (None: ``PTAP_DEBUG``).  Launches kernel 2 for CUDA tensors (counted
+    in ``bounce.launches``), runs the plain version for CPU ones."""
     debug = resolve_debug(debug)
-    rpt = _rays_per_thread(rays_per_thread, BOUNCE_RAYS_PER_THREAD)
     n = pack.shape[0]
     nt, lw = lists.shape
     if n != nt * ray_tile:
@@ -206,9 +192,9 @@ def bounce(
         return bounce_plain(pack, u, world, parity, debug)
     if pack.device.type != "cuda":
         raise ValueError(f"no kernel for device {pack.device}")
-    if not 32 <= ray_tile <= 1024 or ray_tile % (32 * rpt):
-        raise ValueError(f"ray_tile must be a multiple of {32 * rpt} in [32, 1024] for "
-                         f"{rpt} rays per thread, got {ray_tile}")
+    step = 32 * BOUNCE_RAYS_PER_THREAD  # whole warps of threads that own R rays each
+    if not step <= ray_tile <= 1024 or ray_tile % step:
+        raise ValueError(f"ray_tile must be a multiple of {step} in [{step}, 1024], got {ray_tile}")
     if world.tri_block % unit or unit % SWEEP_RUN:
         raise ValueError(f"unit {unit} must divide tri_block {world.tri_block} and be a "
                          f"multiple of {SWEEP_RUN}")
@@ -237,7 +223,6 @@ def bounce(
         ctypes.c_int(int(parity)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
-        ctypes.c_int(rpt),
         ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -563,24 +548,27 @@ def sample_fused(
     use_primary: bool,
     emit_idx: bool = False,
     debug: bool = None,
-    rays_per_thread: int = None,
+    pairs: torch.Tensor = None,
 ):
     """Whole samples through kernel 4: every bounce, every real block.
     Returns the (N, 3) contribution (summed over the samples of a batch),
     and with ``emit_idx`` (one sample only) the (N, max_bounces) int32
     index + 1 stream.  ``debug`` selects the explicit-mask accept chain
-    (None: ``PTAP_DEBUG``); ``rays_per_thread`` the rays each thread
-    owns and sweeps (None: ``FUSED_RAYS_PER_THREAD``), which changes no bit
-    of the result.  Launches kernel 4 for CUDA tensors (counted in
-    ``sample_fused.launches``), runs the plain version for CPU ones."""
+    (None: ``PTAP_DEBUG``).  Launches kernel 4 for CUDA tensors (counted
+    in ``sample_fused.launches``), runs the plain version for CPU ones.
+    ``pairs``, an int64 (N / FUSED_TILE, 2) CUDA tensor, receives each
+    thread block's count of the (ray, triangle) pairs its sweeping warps
+    issued (every lane of a warp that sweeps) and of those of live rays;
+    the plain version counts nothing."""
     debug = resolve_debug(debug)
-    rpt = _rays_per_thread(rays_per_thread, FUSED_RAYS_PER_THREAD)
     n = w16.shape[0]
     batched = u.dim() == 3
     if n % RAY_TILE:
         raise ValueError(f"{n} rays are not a multiple of the {RAY_TILE}-ray tile")
     if emit_idx and batched:
         raise ValueError("emit_idx runs one sample per launch")
+    if pairs is not None and pairs.device.type != "cuda":
+        raise ValueError("pairs counts the kernel's sweep: it needs a CUDA tensor")
     if w16.device.type == "cpu":
         return sample_fused_plain(w16, prim, u, world, max_bounces, parity, use_primary, emit_idx,
                                   debug=debug)
@@ -601,6 +589,8 @@ def sample_fused(
     _check(ops, "ops_tri", torch.float32, (ops.shape[0], 24), dev)
     _check(attr, "attr_rows", torch.float32, (16, ops.shape[0]), dev)
     _check(aabb, "block_aabb", torch.float32, (nb, 8), dev)
+    if pairs is not None:
+        _check(pairs, "pairs", torch.int64, (n // FUSED_TILE, 2), dev)
     if ops.shape[0] < nb * tb:
         raise ValueError("ops_tri holds fewer blocks than block_aabb")
     n_tris = min(n_tris, nb * tb)  # the real triangles of the swept blocks
@@ -627,7 +617,7 @@ def sample_fused(
         ctypes.c_int(int(nb > GATE_BLOCKS)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr() if emit_idx else None),
-        ctypes.c_int(rpt),
+        ctypes.c_void_p(pairs.data_ptr() if pairs is not None else None),
         ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )

@@ -76,23 +76,20 @@ def wavefront(dev, world):
 
 
 def _check_bounce(world, pack, u, lists, unit, ray_tile, parities=(True, False)):
-    """Kernel 2 at every R it is built for against its plain version: the
-    state bit-equal on every ray (dead rays pass through), the index on
-    live rays, -1 for the rays of a tile with no live ray."""
+    """Kernel 2 against its plain version: the state bit-equal on every
+    ray (dead rays pass through), the index on live rays, -1 for the rays
+    of a tile with no live ray."""
     live = pack[:, 9] > 0
     dead_tile = ~live.reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
     for parity in parities:
         ref, ridx = TM.bounce_plain(pack, u, world, parity)
-        for rpt in TM.RAYS_PER_THREAD_CHOICES:
-            if ray_tile % (32 * rpt):
-                continue
-            before = TM.bounce.launches
-            out, idx = TM.bounce(pack, u, lists, unit, world, ray_tile, parity, rays_per_thread=rpt)
-            torch.cuda.synchronize()
-            assert TM.bounce.launches == before + 1
-            assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), rpt
-            assert torch.equal(idx[live], ridx[live]), rpt
-            assert (idx[dead_tile] == -1).all()
+        before = TM.bounce.launches
+        out, idx = TM.bounce(pack, u, lists, unit, world, ray_tile, parity)
+        torch.cuda.synchronize()
+        assert TM.bounce.launches == before + 1
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(idx[live], ridx[live])
+        assert (idx[dead_tile] == -1).all()
 
 
 def test_bounce_kernel_matches_plain(dev, world, wavefront):
@@ -204,22 +201,36 @@ def _fused_case(world, dev, camera, res, jitter: bool):
 
 
 def _check_fused(world, w16, prim, u, parity, use_primary, emit_idx=False):
-    """Kernel 4 at every R it is built for against its plain version: the
-    contribution bit-equal, and with emit_idx the index stream equal."""
-    ref = TM.sample_fused_plain(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx)
-    for rpt in TM.RAYS_PER_THREAD_CHOICES:
+    """Kernel 4 against its plain version: the contribution bit-equal, and
+    with emit_idx the index stream equal; with its pair counter the same
+    output, and, where the sweep is not gated, every real triangle swept
+    once for each live traced ray and bounce."""
+    live = []
+    ref = TM.sample_fused_plain(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx,
+                                live=live)
+    pairs = torch.zeros((w16.shape[0] // TM.FUSED_TILE, 2), dtype=torch.int64, device=w16.device)
+    for count in (None, pairs):
         before = TM.sample_fused.launches
         out = TM.sample_fused(w16, prim, u, world, 5, parity, use_primary, emit_idx=emit_idx,
-                              rays_per_thread=rpt)
+                              pairs=count)
         torch.cuda.synchronize()
         assert TM.sample_fused.launches == before + 1
         if emit_idx:
             (out, idx), (r, ridx) = out, ref
             assert idx.dtype == torch.int32 and idx.shape == (w16.shape[0], 5)
-            assert torch.equal(idx, ridx), rpt
+            assert torch.equal(idx, ridx)
         else:
             r = ref
-        assert torch.equal(out.view(torch.int32), r.view(torch.int32)), rpt
+        assert torch.equal(out.view(torch.int32), r.view(torch.int32))
+    masks = torch.stack(live).reshape(-1, 5, w16.shape[0])
+    traced = int((masks[:, 1:] if use_primary else masks).sum().item())
+    _, n_tris = TM.sweep_operands(world)
+    issued, live_pairs = pairs.sum(dim=0).tolist()
+    assert live_pairs <= issued
+    if world.block_aabb.shape[0] <= TM.GATE_BLOCKS:
+        assert live_pairs == traced * n_tris
+    else:  # the gate skips blocks, never a live ray of a swept one
+        assert 0 < live_pairs <= traced * n_tris
 
 
 def test_fused_kernel_primary_batched_matches_plain(dev):
@@ -443,7 +454,7 @@ def test_debug_fused_kernel_matches_fast(dev, world):
 # --------------------------------------------------------------------------
 
 # live rays of the first tiles: one, none, and either side of multiples of
-# R (1, 2, 4) and of a warp
+# kernel 2's R (2) and of a warp
 LIVE_PATTERN = (1, 0, 3, 5, 31, 33, 63, 65, 127, 129, 255)
 
 

@@ -182,19 +182,30 @@ def test_padding_cut_is_exact(worlds, name, debug):
     assert torch.equal(i_p.long(), i_full)
 
 
-@pytest.mark.parametrize("kernel", ["bounce", "sample_fused"])
-def test_rays_per_thread_is_validated(worlds, kernel):
+@pytest.mark.parametrize("source, name, value", [
+    ("bounce.cu", "kRays", TM.BOUNCE_RAYS_PER_THREAD),
+    ("bounce.cu", "kSweepRun", TM.SWEEP_RUN),
+    ("megakernel.cu", "kSweepRun", TM.SWEEP_RUN),
+    ("megakernel.cu", "kFusedTile", TM.FUSED_TILE),
+])
+def test_wrapper_constants_match_kernel_sources(source, name, value):
+    """The wrappers size launches and validate inputs with copies of the
+    kernels' compile-time constants: each copy equals its source's."""
+    import re
+
+    text = (_build.CSRC / source).read_text()
+    (found,) = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert int(found) == value
+
+
+def test_pair_counter_needs_the_kernel(worlds):
+    """Kernel 4's pair counter counts the kernel's sweep: the plain
+    version on CPU tensors has none to give, so asking for it raises."""
     world = _world(worlds, "cornell")
     n = TT.RAY_TILE
-    with pytest.raises(ValueError, match="rays_per_thread must be one of"):
-        if kernel == "bounce":
-            pack = torch.zeros((n, TM.STATE_COLS))
-            lists = torch.zeros((1, 1), dtype=torch.int32)
-            TM.bounce(pack, torch.zeros((n, 4)), lists, TM.SUB_BLOCK, world, n, True,
-                      rays_per_thread=3)
-        else:
-            TM.sample_fused(torch.zeros((n, 16)), torch.zeros((n, 16)), torch.zeros((n, 8)),
-                            world, 2, True, True, rays_per_thread=8)
+    with pytest.raises(ValueError, match="pairs counts the kernel's sweep"):
+        TM.sample_fused(torch.zeros((n, 16)), torch.zeros((n, 16)), torch.zeros((n, 8)), world, 2,
+                        True, True, pairs=torch.zeros((n // TM.FUSED_TILE, 2), dtype=torch.int64))
 
 
 def test_sweep_operands_need_ops_tri(worlds):
