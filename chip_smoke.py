@@ -42,13 +42,25 @@ and read just after:
   ``MetricsLogger`` and under ``profile_trace``; and the four profiling
   scripts' ``main()`` (``pathtracerap_tpu_torch/scripts``) at full size.
 
-Kernels 2 and 4 (``csrc/bounce.cu``, ``csrc/megakernel.cu``) must be bit
-for bit their plain versions: kernel 2's state on every ray and its index
-on every live ray, kernel 4's contribution and index stream, in every
-mode; each is timed at every R (rays per thread) it is built for, and its
-kernel line gives R, its registers and spills (``ptxas -v``), and for
-kernel 4 the (ray, triangle) pairs its compacted sweep issues beside the
-live pairs of its bound.
+Kernels 1, 2 and 4 (``csrc/trace_list.cu``, ``csrc/bounce.cu``,
+``csrc/megakernel.cu``) must be bit for bit their plain versions: kernel
+1's t and index on every live ray at each of its shapes (the parity
+primaries, the render's slab, the Cornell box's primaries, the
+megascene's primaries from two cameras), kernel 2's state on every ray
+and its index on every live ray, kernel 4's contribution and index
+stream, in every mode.  Their kernel lines give R (rays per thread), the
+registers and spills (``ptxas -v``), for kernel 1 its chunk (worklist
+entries a thread block sweeps) and, beside the time of a slab (its launch
+on the renders), the whole frame's, for kernel 4 the pairs its compacted
+sweep issues beside the live pairs of its bound.  Kernel 1's phase lines
+also give each shape's list lengths, live (ray, triangle) pairs, the SM
+clock nvidia-smi reads while it runs and the pairs per SM clock at it.
+
+Kernel times are device times (``cuda_ms``): CUDA events around many
+calls queued behind a spin on the stream, so that the host's enqueue
+time, which dominated the short profiling kernels' per-call readings,
+falls outside them; a kernel or library reading whose host fell behind
+the spin raises, and each kernel reading also gives the host's µs a call.
 
 Every check raises on failure, so the script exits non-zero before its
 last line, which is
@@ -84,6 +96,7 @@ MAX_BOUNCES = 5
 SLAB = 16 * 8192  # rays of one binned slab (BINNED_SLAB_TILES RNG tiles)
 SAMPLE_BATCH = 4
 K1_IDX_SHARE, K1_T_REL = 0.9999, 1e-5
+K1_CASES = ("parity_primaries", "render_slab", "cornell_primaries")
 K2_HIT_SHARE, K2_STATE_ABS = 0.9999, 1e-4
 K3_IDX_SHARE, K3_T_REL = 0.9999, 1e-5
 TRAIN_SPP, TRAIN_STEPS = 8, 3  # bench.py:89-90
@@ -118,6 +131,7 @@ GATE_FLOPS = 28  # per (live ray, cluster) of kernel 5: 6 sub, 6 mul, 10 min/max
 # the profiling kernels at the scripts' sizes (scripts/prof_kernel_parts.py:26-30)
 PROF_N, PROF_R, PROF_TB, PROF_NB = 800256, 512, 512, 8
 PROF_RTOL, PROF_CHAIN_SHARE = 1e-5, 0.999
+COPY_ROUNDS = 3  # rounds of (kernel, library, library, kernel) device readings of the copy kernel
 # per (ray, triangle) pair of P1's accept chain: det 2, reciprocal 1, t/u/v 3,
 # u + v 1, the parallel test and 5 range tests 6, select 1, min 1
 ACCEPT_FLOPS = 15
@@ -125,13 +139,81 @@ RESUME_SPP, RESUME_CHUNK = 8, 4
 PROFILE_SPP = 4  # the profiled render: the main path's, at fewer samples
 
 
+# the device timer (cuda_ms): torch.cuda._sleep spins this many SM clocks a
+# millisecond at 2 GHz, above the H100's 1980 MHz, so that a spin lasts at
+# least as long as asked
+SLEEP_CYCLES_PER_MS = 2.0e6
+TIMER_PROBE_MS, TIMER_MAX_SPIN_MS, TIMER_TRIES = 20.0, 500.0, 4
+TIMER_DEVICE_MS, TIMER_MAX_REPS = 25.0, 200
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up)."""
+def cuda_ms(fn, reps: int = 10, host: dict = None, lead: bool = True) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around ``n``
+    calls queued behind a spin (``torch.cuda._sleep``) that lasts until
+    the host has queued them all, so that no host time falls between the
+    events; ``n`` is ``reps``, or more for a short call (at least
+    TIMER_DEVICE_MS of device work, at most TIMER_MAX_REPS calls).  The
+    spin is sized from one probe call.  Where the host was still queueing
+    when it ran out (a slow host, or a launch queue that filled and held
+    the host until the spin ended), the reading is taken again with a
+    quarter of the calls behind a spin sized from that queueing time; with
+    ``lead`` (kernels and library calls) a reading whose host never got
+    ahead raises.  Without it (plain versions, some of which wait for the
+    device) such a reading holds host time.  ``host``, a dict, receives
+    the host's µs a call (``host_us``) and whether the queue stayed ahead
+    of the device (``queue_ahead``)."""
+    import torch
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    # one call's host time, and its device time, behind a spin
+    torch.cuda._sleep(int(TIMER_PROBE_MS * SLEEP_CYCLES_PER_MS))
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    a, b = events()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    n = max(reps, min(TIMER_MAX_REPS, math.ceil(TIMER_DEVICE_MS / max(a.elapsed_time(b), 1e-3))))
+    for _ in range(TIMER_TRIES if lead else 1):
+        spin_ms = min(TIMER_MAX_SPIN_MS, 2.0 * n * host_ms + 1.0)
+        a, b = events()
+        torch.cuda._sleep(int(spin_ms * SLEEP_CYCLES_PER_MS))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        ahead = queued_ms < spin_ms
+        if ahead:
+            break
+        host_ms = queued_ms / n
+        n = max(reps, n // 4)
+    check(ahead or not lead,
+          f"cuda_ms: the host queued {n} calls in {queued_ms:.1f} ms, behind a {spin_ms:.1f} ms spin")
+    if host is not None:
+        host["host_us"] = queued_ms / n * 1e3
+        host["queue_ahead"] = ahead
+    return a.elapsed_time(b) / n
+
+
+def per_call_ms(fn, reps: int = 10) -> float:
+    """The per-call reading: the median of ``reps`` CUDA-event timings of
+    one call each, recorded around the call on an idle device, so that
+    each holds the call's host enqueue time too (kept beside cuda_ms for
+    the short profiling kernels, whose readings it dominated)."""
     import torch
 
     fn()
@@ -147,10 +229,11 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def card_while_running(fn, seconds: float = 2.0) -> dict:
-    """``fn`` launched back to back for about ``seconds`` while nvidia-smi
-    samples the card every 200 ms: the steady launch time and the SM clock
-    and power draw it ran at (the samples after the first two)."""
+def card_while_running(fn, seconds: float = 2.0, per_sync: int = 1) -> dict:
+    """``fn`` launched back to back for about ``seconds``, ``per_sync``
+    calls between synchronisations, while nvidia-smi samples the card every
+    200 ms: the steady launch time and the SM clock and power draw it ran
+    at (the samples after the first two)."""
     import torch
 
     smi = subprocess.Popen(
@@ -159,9 +242,10 @@ def card_while_running(fn, seconds: float = 2.0) -> dict:
     try:
         t0, k = time.perf_counter(), 0
         while time.perf_counter() - t0 < seconds:
-            fn()
+            for _ in range(per_sync):
+                fn()
             torch.cuda.synchronize()
-            k += 1
+            k += per_sync
         dt = time.perf_counter() - t0
     finally:
         smi.terminate()
@@ -193,62 +277,100 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def list_pairs(lists, live, ray_tile: int, unit: int) -> int:
-    """(ray, triangle) pairs a worklist kernel sweeps for these inputs:
-    per tile, its listed units' triangles times its live rays."""
-    per_tile = live.reshape(-1, ray_tile).sum(dim=1) * (lists >= 0).sum(dim=1)
-    return int(per_tile.sum().item()) * unit
+def list_pairs(lists, live, ray_tile: int, unit: int, n_valid: int) -> int:
+    """(ray, triangle) pairs a worklist kernel needs for these inputs: per
+    tile, the real triangles of its listed units (the first ``n_valid``
+    of the world; padding is never accepted) times its live rays."""
+    ids = lists.long()
+    tris = ((n_valid - ids * unit).clamp(0, unit) * (ids >= 0)).sum(dim=1)
+    return int((live.reshape(-1, ray_tile).sum(dim=1) * tris).sum().item())
 
 
-def kernel1_vs_plain(world, dev, camera=None, resolution=RESOLUTION, plain_rows=None):
-    """Kernel 1 against its plain version on the primary rays (the plain
-    version on the first ``plain_rows`` of them when given)."""
+def kernel1_case(world, w16, lists, n: int, plain_rows=None) -> dict:
+    """Kernel 1 against its plain version on one set of inputs, on its
+    first ``n`` rays (the real ones; the plain version on the first
+    ``plain_rows`` when given): t and index bit-equal on every live ray.
+    With the list lengths, the live (ray, triangle) pairs, the time, the
+    host's µs a call, the pairs per SM clock and the bound."""
     import torch
 
-    from pathtracerap_tpu_torch import CameraConfig
     from pathtracerap_tpu_torch.kernels.trace import (
-        RAY_TILE, nearest_hit_fused, nearest_hit_fused_plain, primary_inputs,
+        RAY_TILE, nearest_hit_fused, nearest_hit_fused_plain,
     )
-    from pathtracerap_tpu_torch.render.camera import generate_rays
 
-    ro, rd = generate_rays(camera or CameraConfig(), resolution, device=dev)
-    n = min(ro.shape[0], plain_rows or ro.shape[0])
-    w16, lists = primary_inputs(world, ro, rd)
     nb, tb = world.block_aabb.shape[0], world.tri_block
+    m = min(n, plain_rows or n)
 
     def kern():
-        return nearest_hit_fused(w16, world.fused_ops, lists, RAY_TILE, tb)
+        return nearest_hit_fused(w16, world, lists, RAY_TILE)
 
     def plain():
         return nearest_hit_fused_plain(w16[:plain_rows], world.fused_ops, nb, tb)
 
     t_k, i_k = kern()
     t_p, i_p = plain()
-    res_bytes = nbytes(t_k, i_k)
-    t_k, i_k, t_p, i_p = t_k[:n], i_k[:n], t_p[:n], i_p[:n]
+    outs = (t_k, i_k)
+    live = w16[:m, 10] > 0
+    t_k, i_k, t_p, i_p = t_k[:m][live], i_k[:m][live], t_p[:m][live], i_p[:m][live]
     same = i_k == i_p
     both = same & (i_p >= 0)
     share = same.float().mean().item()
     d = (t_k - t_p).abs()[both]
     max_abs = d.max().item() if d.numel() else 0.0
     rel = (d / t_p[both].abs().clamp_min(1e-30)).max().item() if d.numel() else 0.0
+    bits = same & (t_k.view(torch.int32) == t_p.view(torch.int32))
+    lens = (lists >= 0).sum(dim=1).float()
+    all_live = w16[:, 10] > 0
     res = {
-        "rays": ro.shape[0], "blocks": nb, "plain_rays": n,
+        "rays": n, "live": int(all_live.sum().item()), "blocks": nb, "plain_rays": m,
+        "list_len_mean": lens.mean().item(), "list_len_max": int(lens.max().item()),
         "hit_share": (i_p >= 0).float().mean().item(), "idx_equal_share": share,
-        "t_bit_equal_share": (t_k.view(torch.int32) == t_p.view(torch.int32)).float().mean().item(),
-        "max_rel_t": rel, "max_abs_err": max_abs,
+        "bit_equal_share": bits.float().mean().item(), "max_rel_t": rel, "max_abs_err": max_abs,
     }
     check(share >= K1_IDX_SHARE, f"kernel 1 idx equal share {share} >= {K1_IDX_SHARE}")
     check(rel <= K1_T_REL, f"kernel 1 max rel t diff {rel} <= {K1_T_REL}")
-    res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
-    live = w16[:, 10] > 0
-    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, RAY_TILE, tb),
-                     nbytes(w16, world.fused_ops, lists) + res_bytes))
-    # the render launches kernel 1 once per slab of SLAB rays
-    w_s, lists_s = primary_inputs(world, ro[:SLAB], rd[:SLAB])
-    res["slab_rays"] = w_s.shape[0]
-    res["slab_ms"] = cuda_ms(lambda: nearest_hit_fused(w_s, world.fused_ops, lists_s, RAY_TILE, tb))
+    check(res["bit_equal_share"] == 1.0,
+          f"kernel 1 t and index bit-equal on live rays: share {res['bit_equal_share']}")
+    res["pairs"] = list_pairs(lists, all_live, RAY_TILE, tb, world.n_valid)
+    res["ms"] = cuda_ms(kern, host=res)
+    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3, lead=False)
+    # the SM clock while the kernel runs (about 20 ms of launches between
+    # synchronisations), and the live pairs per SM clock at the timed rate
+    card = card_while_running(kern, per_sync=max(1, round(20.0 / res["ms"])))
+    res["sm_clock_mhz"] = statistics.median(card["sm_clock_mhz"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res["pairs_per_sm_clock"] = res["pairs"] / (res["ms"] * 1e3 * sms * res["sm_clock_mhz"])
+    res.update(bound(PAIR_FLOPS * res["pairs"], nbytes(w16, world.ops_tri, lists, *outs)))
+    return res
+
+
+def kernel1_inputs(world, dev, camera=None, resolution=RESOLUTION, rays=slice(None)):
+    """The primaries kernel 1 traces (the slice ``rays`` of the camera's):
+    (ray vectors, worklists, real rays)."""
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.kernels.trace import primary_inputs
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+
+    ro, rd = generate_rays(camera or CameraConfig(), resolution, device=dev)
+    ro, rd = ro[rays], rd[rays]
+    return (*primary_inputs(world, ro, rd), ro.shape[0])
+
+
+def kernel1_vs_plain(world, dev):
+    """Kernel 1 at the main paths' shapes: the parity render's 800,000
+    primaries, its first slab (SLAB rays: the render launches kernel 1 once
+    a slab) and the Cornell box's 65,536 primaries (one block: the Cornell
+    render and default step); with its R, C, registers and spills."""
+    from pathtracerap_tpu_torch import CameraConfig, build_cornell_box_scene
+    from pathtracerap_tpu_torch.kernels.trace import TRACE_LIST_CHUNK, TRACE_LIST_RAYS
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+
+    res = {"parity_primaries": kernel1_case(world, *kernel1_inputs(world, dev)),
+           "render_slab": kernel1_case(world, *kernel1_inputs(world, dev, rays=slice(SLAB)))}
+    cornell = bake_world_triangles(build_cornell_box_scene().to_device(dev))
+    res["cornell_primaries"] = kernel1_case(
+        cornell, *kernel1_inputs(cornell, dev, CameraConfig(**CORNELL_CAMERA), CORNELL_RES))
+    res.update(rays_per_thread=TRACE_LIST_RAYS, chunk=TRACE_LIST_CHUNK, **kernel_build("trace_list"))
     return res
 
 
@@ -284,11 +406,12 @@ def bounce1_wavefront(world, dev, camera=None, resolution=RESOLUTION, bounces=MA
 
 def kernel_build(kernel: str) -> dict:
     """Registers, spills and shared memory of the fast instantiation of
-    kernel 2 (``bounce``) or 4 (``sample_fused``), from the build log
-    (``ptxas -v``)."""
+    kernel 1 (``trace_list``), 2 (``bounce``) or 4 (``sample_fused``),
+    from the build log (``ptxas -v``)."""
     from pathtracerap_tpu_torch.kernels import _build
 
-    mangled = {"bounce": "13bounce_kernel", "sample_fused": "19sample_fused_kernel"}[kernel]
+    mangled = {"trace_list": "17trace_list_kernel", "bounce": "13bounce_kernel",
+               "sample_fused": "19sample_fused_kernel"}[kernel]
     res = _build.kernel_resources()
     (key,) = [k for k in res if f"{mangled}ILb0E" in k]
     return res[key]
@@ -344,10 +467,10 @@ def kernel2_vs_plain(world, dev, wavefront=None, plain_rows=None):
     check(share == 1.0 and res["bit_equal_share"] == 1.0,
           f"kernel 2 bit-equal: live index share {share}, state {res['bit_equal_share']}")
     res["rays_per_thread"] = BOUNCE_RAYS_PER_THREAD
-    res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
+    res["ms"] = cuda_ms(kern, host=res)
+    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3, lead=False)
     res.update(kernel_build("bounce"))
-    res.update(bound(PAIR_FLOPS * list_pairs(lists, all_live, ray_tile, unit),
+    res.update(bound(PAIR_FLOPS * list_pairs(lists, all_live, ray_tile, unit, world.n_valid),
                      nbytes(pack, u_b, lists, world.ops_tri, world.attr_rows, *full_k)))
     return res
 
@@ -389,9 +512,9 @@ def kernel3_vs_plain(world, dev):
     check(share >= K3_IDX_SHARE, f"kernel 3 idx equal share {share} >= {K3_IDX_SHARE}")
     check(rel <= K3_T_REL, f"kernel 3 max rel t diff {rel} <= {K3_T_REL}")
     check(res["dead_tiles_miss"], "kernel 3 writes a miss for tiles with no live ray")
-    res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain)
-    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, ray_tile, unit),
+    res["ms"] = cuda_ms(kern, host=res)
+    res["plain_ms"] = cuda_ms(plain, lead=False)
+    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, ray_tile, unit, world.n_valid),
                      nbytes(pack, lists, world.fused_ops, t_k, c_k)))
     return res
 
@@ -692,8 +815,8 @@ def _fused_compare(world, w16, prim, u, bounces, parity, use_primary, emit_idx=F
         check(share >= K4_IDX_SHARE, f"kernel 4 idx equal share {share} >= {K4_IDX_SHARE}")
         check(bool(torch.equal(idx_k, idx_p)), "kernel 4 index stream equal")
     res["rays_per_thread"] = 1  # kernel 4 sweeps one ray a thread
-    res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain)
+    res["ms"] = cuda_ms(kern, host=res)
+    res["plain_ms"] = cuda_ms(plain, lead=False)
     res.update(kernel_build("sample_fused"))
     res["sweep_triangles"] = n_tris
     pairs = torch.zeros((n // FUSED_TILE, 2), dtype=torch.int64, device=w16.device)
@@ -1040,8 +1163,8 @@ def _dense_compare(world, w, wo, plain_rows=None, phantoms_ok=False):
         "pairs_swept": swept_pairs, "dense_pairs": n_live * world.n_valid,
         "gate_tests": n_live * runs,
     }
-    res["ms"] = cuda_ms(kern)
-    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3)
+    res["ms"] = cuda_ms(kern, host=res)
+    res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3, lead=False)
     # the swept pairs' accept chains and every live ray's slab test of every cluster
     res.update(bound(PAIR_FLOPS * swept_pairs + GATE_FLOPS * n_live * runs,
                      nbytes(w, wo, *ops, t_k, i_k)))
@@ -1250,8 +1373,10 @@ def megascene_render(dev):
     pack, above the TPU kernels' streaming threshold of 313) through
     ``run_config("megascene")``: the binned engine, kernels 1 and 2 on
     701-entry block worklists.  Then both kernels against their plain
-    versions on its primaries and its first sorted bounce wavefront (the
-    plain versions on the first PLAIN_SLICE rays)."""
+    versions on its primaries (kernel 1 from the suite's room camera, on
+    the whole frame and on each of the render's slabs, and from
+    INSIDE_CAMERA) and its first sorted bounce wavefront (the plain
+    versions on the first PLAIN_SLICE rays)."""
     from pathtracerap_tpu_torch import CameraConfig
     from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, run_config, suite_configs
     from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
@@ -1270,7 +1395,16 @@ def megascene_render(dev):
     res["blocks"] = world.block_aabb.shape[0]
     check(res["blocks"] == MEGASCENE_BLOCKS, f"megascene has {res['blocks']} blocks")
     res_xy, bounces = spec["cfg"]["resolution"], spec["cfg"]["max_bounces"]
-    res["kernel1"] = kernel1_vs_plain(world, dev, _ROOM_CAMERA, res_xy, plain_rows=PLAIN_SLICE)
+    res["kernel1"] = kernel1_case(world, *kernel1_inputs(world, dev, _ROOM_CAMERA, res_xy),
+                                  plain_rows=PLAIN_SLICE)
+    # the render's launches: one a slab of SLAB primaries
+    for k in range(res_xy[0] * res_xy[1] // SLAB):
+        res[f"kernel1_slab{k}"] = kernel1_case(
+            world, *kernel1_inputs(world, dev, _ROOM_CAMERA, res_xy, slice(k * SLAB, (k + 1) * SLAB)),
+            plain_rows=PLAIN_SLICE)
+    res["kernel1_inside"] = kernel1_case(
+        world, *kernel1_inputs(world, dev, CameraConfig(**INSIDE_CAMERA), res_xy),
+        plain_rows=PLAIN_SLICE)
     wavefront = bounce1_wavefront(world, dev, _ROOM_CAMERA, res_xy, bounces)
     check(wavefront[2].shape[1] == MEGASCENE_BLOCKS, "bounce worklists are 701 blocks wide")
     res["kernel2"] = kernel2_vs_plain(world, dev, wavefront, plain_rows=PLAIN_SLICE)
@@ -1366,8 +1500,7 @@ def debug_vs_fast(world, dev):
         live = w16[:, 10] > 0
 
         def kern(debug, w16=w16, lists=lists):
-            return TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block,
-                                        debug)
+            return TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE, debug)
 
         (t_f, i_f), (t_d, i_d) = kern(False), kern(True)
         same = _equal_live(t_f, t_d, live) and _equal_live(i_f, i_d, live)
@@ -1487,14 +1620,17 @@ def prof_kernels_vs_plain(dev):
         r = {"plain_rays": ref.shape[0], "close_share": close,
              "us_per_visit": None, "us_per_tile": None,
              "bit_equal_share": (o.view(torch.int32) == ref.view(torch.int32)).float().mean().item(),
-             "max_abs_err": (o - ref).abs().max().item(),
-             "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, 3)}
+             "max_abs_err": (o - ref).abs().max().item()}
+        r["ms"] = cuda_ms(kern, host=r)
+        r["plain_ms"] = cuda_ms(plain, 3, lead=False)
         r.update(bnd)
         r["matmul_alone_ms"] = library
         r["library_ms"] = None if library_call is None else cuda_ms(library_call)
-        tiles = PROF_N // PROF_R
-        r["us_per_tile"] = r["ms"] * 1e3 / tiles
+        # the parts kernel's grid is one tile of PROF_R rays a thread block;
+        # the copy kernel's is not
         if name not in ("empty", "empty_with_ops"):
+            tiles = PROF_N // PROF_R
+            r["us_per_tile"] = r["ms"] * 1e3 / tiles
             r["us_per_visit"] = r["ms"] * 1e3 / (tiles * PROF_NB)
         res[name] = r
 
@@ -1524,18 +1660,35 @@ def prof_kernels_vs_plain(dev):
         name = "empty_with_ops" if with_ops else "empty"
         # a strided read of one 32-byte sector per 64-byte row, the column written
         # the library call is the one PyTorch call that computes out = w[:, 0]
-        compare(name, lambda: KP.empty(w, PROF_R, ops if with_ops else None),
-                lambda: KP.empty_plain(w), True, bound(0.0, PROF_N * 32 + out_bytes),
-                library_call=lambda: w[:, 0].contiguous())
+        def kern(with_ops=with_ops):
+            return KP.empty(w, PROF_R, ops if with_ops else None)
+
+        def library():
+            return w[:, 0].contiguous()
+
+        compare(name, kern, lambda: KP.empty_plain(w), True, bound(0.0, PROF_N * 32 + out_bytes),
+                library_call=library)
         check(res[name]["bit_equal_share"] == 1.0, f"{name}: exact")
+        r = res[name]
+        # device time in turns with the library call (the spread of repeated
+        # readings), and the per-call readings beside
+        reads = {"kernel": [], "library": []}
+        for _ in range(COPY_ROUNDS):
+            for who in ("kernel", "library", "library", "kernel"):
+                reads[who].append(cuda_ms(kern if who == "kernel" else library))
+        r.update(ms_reads=reads["kernel"], library_ms_reads=reads["library"],
+                 bound_share=r["bound_ms"] / statistics.median(reads["kernel"]),
+                 per_call_ms=per_call_ms(kern), library_per_call_ms=per_call_ms(library))
     del w, ops
     x, bases = P3.argmin_case(dev)
     o, ref = KP.argmin_int(x, bases), KP.argmin_int_plain(x, bases)
     check(bool(torch.equal(o, ref)), "prof_argmin: exact")
-    r = {"rows": x.shape[0], "equal": True, "max_abs_err": 0.0,
-         "ms": cuda_ms(lambda: KP.argmin_int(x, bases)),
-         "plain_ms": cuda_ms(lambda: KP.argmin_int_plain(x, bases)),
-         "argmin_alone_ms": cuda_ms(lambda: torch.argmin(x, dim=1))}
+    r = {"rows": x.shape[0], "equal": True, "max_abs_err": 0.0}
+    r["ms"] = cuda_ms(lambda: KP.argmin_int(x, bases), host=r)
+    r.update(plain_ms=cuda_ms(lambda: KP.argmin_int_plain(x, bases), lead=False),
+             argmin_alone_ms=cuda_ms(lambda: torch.argmin(x, dim=1)),
+             per_call_ms=per_call_ms(lambda: KP.argmin_int(x, bases)),
+             argmin_alone_per_call_ms=per_call_ms(lambda: torch.argmin(x, dim=1)))
     r.update(bound(2.0 * x.numel(), nbytes(x, bases, o)))
     res["argmin_int"] = r
     return res
@@ -1826,17 +1979,23 @@ def main() -> int:
         }
         if k.get("matmul_alone_ms") is not None:
             out["library_note"] = f"none (matmul alone: {k['matmul_alone_ms']} ms)"
-        out.update({key: k[key] for key in extra})
+        out.update(extra if isinstance(extra, dict) else {key: k[key] for key in extra})
         return out
 
     # kernels 2 and 4: rays a thread sweeps, the build's registers and spills
     sweep = ("rays_per_thread", "registers", "spill_stores", "spill_loads")
+    # kernel 1: the same and its chunk; its rows are its main paths' launches,
+    # one a slab, with the whole frame's time beside
+    k1_extra = {key: k1[key] for key in sweep + ("chunk",)}
+    k1_extra["frame_ms"] = k1["parity_primaries"]["ms"]
+    mega_k1 = [key for key in mega if key.startswith("kernel1")]
+    mega_extra = {"slab1_ms": mega["kernel1_slab1"]["ms"], "frame_ms": mega["kernel1"]["ms"]}
 
     pallas = "pathtracerap_tpu/pallas/"
     k4q = k4["traced_jittered"]  # the quality render's launch, its main path
     kernels = [
         entry("trace_list", "trace_list.cu", pallas + "trace.py:188", mp["trace_list_launches"],
-              k1),
+              k1["render_slab"], max(k1[c]["max_abs_err"] for c in K1_CASES), extra=k1_extra),
         entry("bounce", "bounce.cu", pallas + "megakernel.py:1666", mp["bounce_launches"], k2,
               extra=sweep),
         entry("bounce_trace", "bounce_trace.cu", pallas + "megakernel.py:1846",
@@ -1849,7 +2008,8 @@ def main() -> int:
               k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict))),
         # the TPU kernels' streamed modes, at the megascene's 701 blocks
         entry("trace_list_701_blocks", "trace_list.cu", pallas + "trace.py:222",
-              mega["trace_list_launches"], mega["kernel1"]),
+              mega["trace_list_launches"], mega["kernel1_slab0"],
+              max(mega[c]["max_abs_err"] for c in mega_k1), extra=mega_extra),
         entry("bounce_701_blocks", "bounce.cu", pallas + "megakernel.py:954",
               mega["bounce_launches"], mega["kernel2"], extra=sweep),
     ]

@@ -50,39 +50,6 @@ constexpr int kSweepRun = 128;  // triangles staged per shared-memory run
 // (kernels/megakernel.py BOUNCE_RAYS_PER_THREAD mirrors it)
 constexpr int kRays = 2;
 
-// The runs of a tile's worklist in sweep order: entry j's `unit / kSweepRun`
-// runs in ascending order, entries until the first -1, runs from the last
-// real triangle on dropped.
-struct RunCursor {
-  const int* row;
-  int list_w, unit, n_tris, j, off, id;
-
-  __device__ void start() {
-    j = 0;
-    off = 0;
-    id = list_w > 0 ? row[0] : -1;
-    skip();
-  }
-  __device__ bool done() const { return id < 0; }
-  __device__ int g0() const { return id * unit + off; }
-  __device__ void skip() {
-    while (id >= 0 && id * unit + off >= n_tris) {
-      ++j;
-      off = 0;
-      id = j < list_w ? row[j] : -1;
-    }
-  }
-  __device__ void next() {
-    off += kSweepRun;
-    if (off >= unit) {
-      ++j;
-      off = 0;
-      id = j < list_w ? row[j] : -1;
-    }
-    skip();
-  }
-};
-
 }  // namespace
 
 // Debug: the explicit-mask accept chain of PTAP_DEBUG=1 (common.cuh).
@@ -127,7 +94,7 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
     return;
   }
 
-  RunCursor cur = {lists + (size_t)tile * list_w, list_w, unit, n_tris, 0, 0, -1};
+  RunCursor<kSweepRun> cur = {lists + (size_t)tile * list_w, list_w, unit, n_tris, 0, 0, -1};
   cur.start();
   if (!cur.done()) stage_tri_async(run[0], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
   for (int buf = 0; !cur.done(); buf ^= 1) {

@@ -14,15 +14,15 @@
 // cp.async copies stage, and six 16-byte shared loads bring a triangle's
 // operands into registers.
 //
-// What bounds a sweep on the H100.  `sweep` (kernels 1, 3 and 5) loads a
+// What bounds a sweep on the H100.  `sweep` (kernels 3 and 5) loads a
 // (ray, triangle) pair's 22 operands as 22 scalar shared loads and is
 // bound by the SM's shared-memory load pipe, about one warp-wide load a
-// clock.  `sweep_rays` (kernels 2 and 4) loads a triangle once as six
+// clock.  `sweep_rays` (kernels 1, 2 and 4) loads a triangle once as six
 // 16-byte broadcasts for the thread's R rays, and runs the division and
 // the accept chain only for pairs that a division-free test cannot reject
 // (may_accept); a pair then costs its 22 FMAs, the determinant and the
 // test, about 40 instructions, and the instruction issue bounds it.  The
-// old `sweep` and `stage_ops` stay until kernels 1, 3 and 5 move over.
+// old `sweep` and `stage_ops` stay until kernels 3 and 5 move over.
 //
 // Rules shared with the JAX reference (ops/plucker.py, pallas/trace.py):
 //  * the accept chain is the five explicit comparisons below.  fminf/fmaxf
@@ -243,6 +243,40 @@ __device__ __forceinline__ void stage_tri_async(float4* sm, const float* __restr
   for (int i = threadIdx.x; i < width * 6; i += blockDim.x) cp_async16(sm + i, src + i);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+
+// The Run-triangle runs of a worklist row in sweep order (kernels 1 and
+// 2): entry j's `unit / Run` runs in ascending order, entries until the
+// first -1 or the row's end, runs from the last real triangle on dropped.
+template <int Run>
+struct RunCursor {
+  const int* row;
+  int list_w, unit, n_tris, j, off, id;
+
+  __device__ void start() {
+    j = 0;
+    off = 0;
+    id = list_w > 0 ? row[0] : -1;
+    skip();
+  }
+  __device__ bool done() const { return id < 0; }
+  __device__ int g0() const { return id * unit + off; }
+  __device__ void skip() {
+    while (id >= 0 && id * unit + off >= n_tris) {
+      ++j;
+      off = 0;
+      id = j < list_w ? row[j] : -1;
+    }
+  }
+  __device__ void next() {
+    off += Run;
+    if (off >= unit) {
+      ++j;
+      off = 0;
+      id = j < list_w ? row[j] : -1;
+    }
+    skip();
+  }
+};
 
 // Launch helper: opt in to more than 48 KB of dynamic shared memory.
 template <typename K>

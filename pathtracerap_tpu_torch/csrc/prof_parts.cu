@@ -39,7 +39,7 @@
 // (mma.sync m16n8k16 bf16) form of the
 // bf16 variants is the question these kernels were written to measure and
 // is left to the PRs that redesign kernels 1 to 4.  The TPU grid of 512-ray
-// tiles becomes the copy kernel's thread blocks (P4 measures a grid step).
+// tiles (P4 measures a grid step there) sets the copy kernel's block width.
 
 #include <cuda_bf16.h>
 
@@ -165,13 +165,29 @@ parts_kernel(const float* __restrict__ w,     // (N, K)
   out[ray] = best + attrs;
 }
 
-// P4 and P2's `empty`: out = w[:, 0], one thread per row, one thread block
-// per tile of rows.  `ops` is bound and never read, as the TPU kernel's
-// unused operand.
+// P4 and P2's `empty`: out = w[:, 0].  `ops` is bound and never read, as
+// the TPU kernel's unused operand.  What bounds it: device memory, a 32-byte
+// sector read for each row's one float and 4 bytes written.  Each thread
+// copies kCopyRows rows, strided by the grid so that a warp's loads stay on
+// neighbouring rows, and issues all their loads before any store, in blocks
+// of a tile of rows: the 800,256-row grid is one wave on the 132 SMs.
+constexpr int kCopyRows = 4;
+
 __global__ void empty_kernel(const float* __restrict__ w, int k, const float* __restrict__ ops,
-                             float* __restrict__ out) {
-  const size_t row = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  out[row] = w[row * k];
+                             float* __restrict__ out, int n) {
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  const size_t row0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  float v[kCopyRows];
+#pragma unroll
+  for (int j = 0; j < kCopyRows; ++j) {
+    const size_t row = row0 + j * stride;
+    v[j] = row < (size_t)n ? __ldcs(w + row * k) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kCopyRows; ++j) {
+    const size_t row = row0 + j * stride;
+    if (row < (size_t)n) __stcs(out + row, v[j]);
+  }
 }
 
 template <int K, int V, bool U>
@@ -195,7 +211,8 @@ extern "C" int ptt_prof_parts(const float* w, int n, int k, int rows, const floa
   const cudaStream_t st = (cudaStream_t)stream;
   if (variant == kEmpty) {
     if (rows < 32 || rows > 1024 || n % rows) return (int)cudaErrorInvalidValue;
-    empty_kernel<<<n / rows, rows, 0, st>>>(w, k, ops, out);
+    const int per_block = rows * kCopyRows;
+    empty_kernel<<<(n + per_block - 1) / per_block, rows, 0, st>>>(w, k, ops, out, n);
     return (int)cudaGetLastError();
   }
   const auto run = [&](auto launch) {

@@ -45,7 +45,7 @@ def _nvcc() -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ptt_trace_list.restype = i
-    lib.ptt_trace_list.argtypes = [p, p, i, p, i, i, i, i, p, p, i, p]
+    lib.ptt_trace_list.argtypes = [p, p, i, i, i, i, p, i, p, p, p, i, p]
     lib.ptt_bounce.restype = i
     lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, i, p, i, i, p, p, i, p]
     lib.ptt_bounce_trace.restype = i

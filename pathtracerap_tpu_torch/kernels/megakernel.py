@@ -40,8 +40,8 @@ from ..utils.debug import resolve_debug
 from ..utils.profiling import annotate
 from . import _build
 from .trace import (
-    RAY_TILE, _check, _slab_margin, _tile_block_lists, nearest_hit_fused_plain, ray_vectors,
-    trace_pallas,
+    RAY_TILE, SWEEP_RUN, _check, _slab_margin, _tile_block_lists, nearest_hit_fused_plain,
+    ray_vectors, sweep_operands, trace_pallas,
 )
 
 F_MAX = constants.FLOAT_MAX
@@ -57,7 +57,6 @@ STATE_COLS = 10  # [orig(0:3), dir(3:6), color(6:9), remaining(9)]
 SAMPLE_BATCH = 8  # samples per fused launch, parity camera
 FUSED_SLAB_TILES = 64  # fused facade slab, in 8192-ray RNG tiles
 GATE_BLOCKS = 8  # the fused sweep gates blocks on their AABB above this many
-SWEEP_RUN = 128  # triangles kernels 2 and 4 stage per shared-memory run
 FUSED_TILE = 256  # rays per thread block of kernel 4 (csrc/megakernel.cu kFusedTile)
 # Rays each thread of kernel 2 carries through the sweep (csrc/bounce.cu
 # kRays): one triangle's operands, loaded from shared memory once, serve
@@ -130,24 +129,6 @@ def _shade_pack(pack: torch.Tensor, hits: HitRecord, u: torch.Tensor, parity: bo
     state = RayState(orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9], remaining=pack[:, 9])
     s = shade(state, hits, u, parity=parity, norm=normalize_rsqrt)
     return torch.cat([s.orig, s.dir, s.color, s.remaining[:, None]], dim=1)
-
-
-def sweep_operands(world: WorldTriangles):
-    """What kernels 2 and 4 stage: ``(ops_tri, n_tris)``, the world's
-    (T, 24) triangle-major pack, checked, and the count of real
-    triangles the sweep stops at (padding is never accepted)."""
-    ops = world.ops_tri
-    if ops is None:
-        raise ValueError("world.ops_tri is None: kernels 2 and 4 stage the triangle-major pack "
-                         "that bake_world_triangles stores beside fused_ops")
-    if ops.dtype != torch.float32 or ops.dim() != 2 or ops.shape[1] != 24:
-        raise ValueError(f"ops_tri: expected float32 (T, 24), got {ops.dtype} {tuple(ops.shape)}")
-    if not ops.is_contiguous():
-        raise ValueError("ops_tri must be contiguous")
-    if ops.data_ptr() % 16:
-        raise ValueError("ops_tri must be 16-byte aligned: the kernels stage it with 16-byte copies")
-    t = ops.shape[0]
-    return ops, min(world.n_valid or t, t)
 
 
 def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, parity: bool,

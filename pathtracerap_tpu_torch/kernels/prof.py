@@ -196,9 +196,10 @@ empty_plain.calls = 0
 
 
 def empty(w: torch.Tensor, r: int, ops: torch.Tensor = None) -> torch.Tensor:
-    """P4 (and P2's ``empty``): ``out = w[:, 0]``, one thread block per
-    tile of ``r`` rows; ``ops``, when given, is bound to the kernel and
-    never read, as the TPU kernel's unused operand.  Launches the copy
+    """P4 (and P2's ``empty``): ``out = w[:, 0]`` for ``w`` of whole tiles
+    of ``r`` rows, in thread blocks of ``r`` threads that copy several rows
+    each; ``ops``, when given, is bound to the kernel and never read, as
+    the TPU kernel's unused operand.  Launches the copy
     kernel for CUDA tensors (counted in ``empty.launches`` and, by whether
     ``ops`` was bound, in ``empty.variant_launches``), runs the plain
     version for CPU ones."""

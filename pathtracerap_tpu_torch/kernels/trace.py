@@ -4,8 +4,10 @@
 torch (:func:`_tile_block_lists`), sorted front to back and padded with
 -1; the nearest-hit sweep over them is kernel 1, ``csrc/trace_list.cu``,
 which replaces the TPU kernel ``pallas/trace.py::_fused_list_kernel``.
-It reads the pack from device memory at any block count, so it also
-stands in for that kernel's streamed mode above 313 blocks.
+It stages the bake's triangle-major pack ``ops_tri`` from device memory
+at any block count, so it also stands in for that kernel's streamed mode
+above 313 blocks, and splits each tile's list into chunks of
+``TRACE_LIST_CHUNK`` entries swept by thread blocks of their own.
 
 **Dense trace.** A world without a fused pack (above the bake's pack
 budget, or traced with ``cull=False``) is swept whole by kernel 5,
@@ -48,6 +50,11 @@ PLAIN_CHUNK = 8192  # rays per chunk of the plain versions' products
 # PLAIN_ELEMS values.
 PLAIN_BLOCK_CHUNK = 64
 PLAIN_ELEMS = 1 << 24
+SWEEP_RUN = 128  # triangles kernels 1, 2 and 4 stage per shared-memory run
+# Kernel 1 (csrc/trace_list.cu kRays, kChunk): rays a thread sweeps, and
+# worklist entries a thread block sweeps; chosen on the card (PERF.md).
+TRACE_LIST_RAYS = 2
+TRACE_LIST_CHUNK = 1
 DENSE_TILE = 256  # rays per thread block of kernel 5
 DENSE_RUN = 128  # triangles per run of kernel 5 == the bake's cluster width
 DENSE_TRI_CHUNK = 8192  # triangles per chunk of kernel 5's plain version
@@ -220,49 +227,77 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def sweep_operands(world: WorldTriangles):
+    """What kernels 1, 2 and 4 stage: ``(ops_tri, n_tris)``, the world's
+    (T, 24) triangle-major pack, checked, and the count of real
+    triangles the sweep stops at (padding is never accepted)."""
+    ops = world.ops_tri
+    if ops is None:
+        raise ValueError("world.ops_tri is None: kernels 1, 2 and 4 stage the triangle-major "
+                         "pack that bake_world_triangles stores beside fused_ops")
+    if ops.dtype != torch.float32 or ops.dim() != 2 or ops.shape[1] != 24:
+        raise ValueError(f"ops_tri: expected float32 (T, 24), got {ops.dtype} {tuple(ops.shape)}")
+    if not ops.is_contiguous():
+        raise ValueError("ops_tri must be contiguous")
+    if ops.data_ptr() % 16:
+        raise ValueError("ops_tri must be 16-byte aligned: the kernels stage it with 16-byte copies")
+    t = ops.shape[0]
+    return ops, min(world.n_valid or t, t)
+
+
 def nearest_hit_fused(
     w: torch.Tensor,  # (N, 16) [dir, orig x dir, orig, -1, alive, 0...]
-    fused_ops: torch.Tensor,  # (16, 4*T) block-grouped operand pack
-    block_list: torch.Tensor,  # (nt, nb) int32 worklists
+    world: WorldTriangles,  # with its fused pack (and, on the card, ops_tri)
+    block_list: torch.Tensor,  # (nt, nb) int32 worklists of world.tri_block-triangle blocks
     ray_tile: int,
-    tri_block: int,
     debug: bool = None,
 ):
     """Returns (t (N,), idx (N,) int32, -1 on a miss): the nearest accepted
-    triangle per ray.  ``debug`` selects the explicit-mask accept chain
+    triangle per ray over its tile's worklist (every ray of a tile is
+    traced, live or not).  ``debug`` selects the explicit-mask accept chain
     (None: the ``PTAP_DEBUG`` environment variable).  Launches kernel 1 for
     CUDA tensors (counted in ``nearest_hit_fused.launches``), runs the
     plain version for CPU ones."""
     debug = resolve_debug(debug)
     n = w.shape[0]
     nt, nb = block_list.shape
+    tb = world.tri_block
     if n != nt * ray_tile:
         raise ValueError(f"{n} rays do not fill {nt} tiles of {ray_tile}")
     if w.device.type == "cpu":
-        return nearest_hit_fused_plain(w, fused_ops, nb, tri_block, debug)
+        return nearest_hit_fused_plain(w, world.fused_ops, nb, tb, debug)
     if w.device.type != "cuda":
         raise ValueError(f"no kernel for device {w.device}")
-    if not 32 <= ray_tile <= 1024 or ray_tile % 32:
-        raise ValueError(f"ray_tile must be a multiple of 32 in [32, 1024], got {ray_tile}")
+    step = 32 * TRACE_LIST_RAYS  # whole warps of threads that sweep R rays each
+    if not step <= ray_tile <= 1024 or ray_tile % step:
+        raise ValueError(f"ray_tile must be a multiple of {step} in [{step}, 1024], got {ray_tile}")
+    if tb % SWEEP_RUN:
+        raise ValueError(f"tri_block {tb} is not a multiple of {SWEEP_RUN}")
     dev = w.device
+    ops, n_tris = sweep_operands(world)
     _check(w, "w", torch.float32, (n, 16), dev)
-    _check(fused_ops, "fused_ops", torch.float32, (16, fused_ops.shape[1]), dev)
+    _check(ops, "ops_tri", torch.float32, tuple(ops.shape), dev)
     _check(block_list, "block_list", torch.int32, (nt, nb), dev)
-    if fused_ops.shape[1] < nb * 4 * tri_block:
-        raise ValueError("fused_ops holds fewer blocks than the worklists")
+    if ops.shape[0] < nb * tb:
+        raise ValueError("ops_tri holds fewer blocks than the worklists")
+    if w.data_ptr() % 16:
+        raise ValueError("w must be 16-byte aligned: the kernel loads its rows as float4")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
+    # per-ray merge keys and per-tile counts, for tiles whose lists span chunks
+    merge = torch.zeros(n + nt, dtype=torch.int64, device=dev) if nb > TRACE_LIST_CHUNK else None
     err = _build.library().ptt_trace_list(
         ctypes.c_void_p(w.data_ptr()),
-        ctypes.c_void_p(fused_ops.data_ptr()),
-        ctypes.c_int(fused_ops.shape[1]),
         ctypes.c_void_p(block_list.data_ptr()),
         ctypes.c_int(nt),
         ctypes.c_int(nb),
+        ctypes.c_int(tb),
         ctypes.c_int(ray_tile),
-        ctypes.c_int(tri_block),
+        ctypes.c_void_p(ops.data_ptr()),
+        ctypes.c_int(n_tris),
         ctypes.c_void_p(t.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_void_p(merge.data_ptr() if merge is not None else None),
         ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -468,8 +503,7 @@ def trace_pallas(world: WorldTriangles, ro, rd, alive=None, cull: bool = True,
     n = ro.shape[0]
     if cull and world.fused_ops is not None:
         w16, block_list = primary_inputs(world, ro, rd, alive)
-        t, idx = nearest_hit_fused(w16, world.fused_ops, block_list, RAY_TILE, world.tri_block,
-                                   debug)
+        t, idx = nearest_hit_fused(w16, world, block_list, RAY_TILE, debug)
     else:
         w, wo = dense_inputs(ro, rd, alive)
         t, idx = nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,

@@ -3,7 +3,8 @@ of ``scripts/prof_kernel_parts2.py``).
 
     python -m pathtracerap_tpu_torch.scripts.prof_kernel_parts2
 
-  empty        - the kernel copies w[:, 0] to out only (the grid-step floor)
+  empty        - the copy kernel: w[:, 0] to out only (the TPU's grid-step
+                 floor; the time alone, its grid is not a tile a block)
   mm_bf16      - the single-pass bf16 product + min at K=16, looped visits
   mm_k32       - the same at K=32
   mm_k128      - the same at K=128
@@ -56,10 +57,14 @@ def main() -> list:
     for variant, k in RUNS:
         w, ops = inputs(dev, k)
         dt = best_ms(lambda: run(variant, w, ops)) / 1e3
-        print(f"{variant:12s} K={k:3d}: {dt*1e3:8.4f} ms total, "
-              f"{dt/visits*1e6:7.3f} us/visit, {dt/nt*1e6:7.3f} us/tile")
-        out.append({"variant": variant, "k": k, "ms": dt * 1e3,
-                    "us_per_visit": dt / visits * 1e6, "us_per_tile": dt / nt * 1e6})
+        row = {"variant": variant, "k": k, "ms": dt * 1e3}
+        if variant == "empty":
+            print(f"{variant:12s} K={k:3d}: {dt*1e3:8.4f} ms total")
+        else:
+            print(f"{variant:12s} K={k:3d}: {dt*1e3:8.4f} ms total, "
+                  f"{dt/visits*1e6:7.3f} us/visit, {dt/nt*1e6:7.3f} us/tile")
+            row.update(us_per_visit=dt / visits * 1e6, us_per_tile=dt / nt * 1e6)
+        out.append(row)
         del w, ops
     return out
 

@@ -3,9 +3,11 @@ of ``scripts/prof_mega_sweep.py``).
 
     python -m pathtracerap_tpu_torch.scripts.prof_mega_sweep
 
-1. The empty-kernel dispatch probe: ``out = w[:, 0]`` over 1,563 tiles of
-   512 rows (``csrc/prof_parts.cu``'s copy kernel), with and without an
-   unused (16, 16,384) operand.
+1. The empty-kernel dispatch probe: ``out = w[:, 0]`` over 800,256 rows
+   (``csrc/prof_parts.cu``'s copy kernel: thread blocks of 512 threads,
+   four rows a thread), with and without an unused (16, 16,384) operand.
+   The JAX script divided the time by its 1,563 grid steps; the copy
+   kernel's grid is not one step a tile, so only the time is printed.
 2. Kernel 4 (``render_samples_fused``) per sample on the reference scene
    at 1000x800, 1 spp, 5 bounces.  JAX swept the megakernel's ``ray_tile``
    over 1024/2048/4096; the port's kernel 4 has one tile (``FUSED_TILE``
@@ -41,10 +43,9 @@ def empty_inputs(device, seed: int = 0):
 
 
 def empty_variant(w, ops, with_ops: bool) -> dict:
-    nt = N // R
-    dt = best_ms(lambda: empty(w, R, ops if with_ops else None)) / 1e3
-    print(f"empty with_ops={with_ops}: {dt*1e3:8.4f} ms, {dt/nt*1e6:7.3f} us/step")
-    return {"ms": dt * 1e3, "us_per_step": dt / nt * 1e6}
+    ms = best_ms(lambda: empty(w, R, ops if with_ops else None))
+    print(f"empty with_ops={with_ops}: {ms:8.4f} ms")
+    return {"ms": ms}
 
 
 def main() -> dict:

@@ -52,7 +52,7 @@ def test_trace_list_kernel_matches_plain(dev, world):
     ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
     w16, lists = TT.primary_inputs(world, ro, rd)
     before = TT.nearest_hit_fused.launches
-    t, idx = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block)
+    t, idx = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE)
     torch.cuda.synchronize()
     assert TT.nearest_hit_fused.launches == before + 1
     tp, ip = TT.nearest_hit_fused_plain(w16, world.fused_ops, world.block_aabb.shape[0], world.tri_block)
@@ -61,6 +61,7 @@ def test_trace_list_kernel_matches_plain(dev, world):
     both = same & (ip >= 0)
     rel = ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both]
     assert rel.max().item() <= 1e-5
+    assert _bits_equal((t, idx), (tp, ip), w16[:, 10] > 0)
 
 
 @pytest.fixture(scope="module")
@@ -363,9 +364,10 @@ def test_worklist_kernels_above_313_blocks(dev, big_world):
     ro, rd = generate_rays(_ROOM_CAMERA, (128, 64), device=dev)
     w16, lists = TT.primary_inputs(world, ro, rd)
     assert lists.shape[1] == world.block_aabb.shape[0]
-    t, idx = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block)
+    t, idx = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE)
     tp, ip = TT.nearest_hit_fused_plain(w16, world.fused_ops, lists.shape[1], world.tri_block)
     assert (idx == ip).float().mean().item() >= 0.9999
+    assert _bits_equal((t, idx), (tp, ip), w16[:, 10] > 0)
     rd = normalize(rd)
     hits0 = TT.trace_pallas(world, ro, rd)
     pack, u_flat = TM.first_wavefront(world, ro, rd, hits0, prng_key(2, dev), 0, 4, ro.shape[0], 6,
@@ -386,6 +388,85 @@ def test_worklist_kernels_above_313_blocks(dev, big_world):
     pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
     lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
     _check_bounce(world, pack, u_flat[:, 4:8][pix], lists, unit, ray_tile, parities=(True,))
+
+
+def _bits_equal(a, b, rows=None):
+    """Kernel 1's (t, idx) against another's, bit for bit (on ``rows``)."""
+    (t, i), (tp, ip) = a, b
+    if rows is not None:
+        t, i, tp, ip = t[rows], i[rows], tp[rows], ip[rows]
+    return torch.equal(t.view(torch.int32), tp.view(torch.int32)) and torch.equal(i, ip)
+
+
+# worklist lengths either side of kernel 1's chunk (TRACE_LIST_CHUNK entries),
+# and a list of many chunks; every case also has a tile with an empty list
+_C = TT.TRACE_LIST_CHUNK
+K1_LENGTHS = tuple(sorted({_C - 1, _C, _C + 1, 2 * _C, 9 * _C + 1} - {0}))
+
+
+@pytest.mark.parametrize("length", K1_LENGTHS)
+@pytest.mark.parametrize("debug", [False, True], ids=["fast", "debug"])
+def test_trace_list_kernel_on_list_lengths(dev, big_world, length, debug):
+    """Kernel 1 on worklists of ``length`` blocks (blocks 0 to length - 1
+    in a shuffled order per tile), one tile with an empty list: bit-equal
+    to its plain version over the same blocks on every ray, a miss on
+    every ray of the empty tile."""
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+
+    world = big_world
+    ro, rd = generate_rays(_ROOM_CAMERA, (128, 64), device=dev)
+    w16, _ = TT.primary_inputs(world, ro, rd)
+    nt = w16.shape[0] // TT.RAY_TILE
+    g = torch.Generator().manual_seed(length)
+    lists = torch.full((nt, world.block_aabb.shape[0]), -1, dtype=torch.int32)
+    for tile in range(nt):
+        lists[tile, :length] = torch.randperm(length, generator=g)
+    lists[1] = -1
+    out = TT.nearest_hit_fused(w16, world, lists.to(dev), TT.RAY_TILE, debug)
+    ref = TT.nearest_hit_fused_plain(w16, world.fused_ops, length, world.tri_block, debug)
+    torch.cuda.synchronize()
+    empty = torch.zeros(w16.shape[0], dtype=torch.bool, device=dev)
+    empty[TT.RAY_TILE:2 * TT.RAY_TILE] = True
+    assert _bits_equal(out, ref, ~empty)
+    assert (out[0][empty] == 9999999.0).all() and (out[1][empty] == -1).all()
+
+
+def test_trace_list_kernel_on_one_and_no_live_ray(dev, big_world):
+    """Kernel 1 from inside the room (long worklists) with one live ray in
+    tile 0 and none in tile 1: bit-equal to the plain version on the live
+    rays, a miss on every ray of the tile with none."""
+    world = big_world
+    ro, rd = generate_rays(CameraConfig(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0),
+                                        plane_y=(-48.0, 48.0), plane_z=120.0), (64, 64), device=dev)
+    alive = torch.ones(ro.shape[0], dtype=torch.bool, device=dev)
+    alive[1:2 * TT.RAY_TILE] = False
+    w16, lists = TT.primary_inputs(world, ro, rd, alive)
+    assert (lists[1] < 0).all() and (lists >= 0).sum(dim=1).max() > TT.TRACE_LIST_CHUNK
+    out = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE)
+    ref = TT.nearest_hit_fused_plain(w16, world.fused_ops, lists.shape[1], world.tri_block)
+    torch.cuda.synchronize()
+    assert _bits_equal(out, ref, w16[:, 10] > 0)
+    tile1 = slice(TT.RAY_TILE, 2 * TT.RAY_TILE)
+    assert (out[0][tile1] == 9999999.0).all() and (out[1][tile1] == -1).all()
+
+
+def test_trace_list_kernel_at_701_blocks(dev):
+    """Kernel 1 on the suite's 701-block megascene, from its room camera
+    and from inside the room: bit-equal to its plain version on every
+    live ray, fast and debug forms."""
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, suite_configs
+
+    world = bake_world_triangles(suite_configs()["megascene"]["scene"]().to_device(dev))
+    assert world.block_aabb.shape[0] == 701
+    inside = CameraConfig(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0),
+                          plane_y=(-48.0, 48.0), plane_z=120.0)
+    for cam in (_ROOM_CAMERA, inside):
+        ro, rd = generate_rays(cam, (64, 64), device=dev)
+        w16, lists = TT.primary_inputs(world, ro, rd)
+        for debug in (False, True):
+            out = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE, debug)
+            ref = TT.nearest_hit_fused_plain(w16, world.fused_ops, 701, world.tri_block, debug)
+            assert _bits_equal(out, ref, w16[:, 10] > 0)
 
 
 def test_pallas_render_on_gpu_matches_cpu(dev):
@@ -420,9 +501,9 @@ def test_debug_trace_list_kernel_matches_fast_and_plain(dev, world):
     dro, drd = degenerate_rays(world)
     ro, rd = torch.cat([ro, dro]), torch.cat([rd, drd])
     w16, lists = TT.primary_inputs(world, ro, rd)
-    fast = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block, False)
+    fast = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE, False)
     before = TT.nearest_hit_fused.launches
-    dbg = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block, True)
+    dbg = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE, True)
     torch.cuda.synchronize()
     assert TT.nearest_hit_fused.launches == before + 1
     assert torch.equal(dbg[0], fast[0]) and torch.equal(dbg[1], fast[1])
@@ -508,6 +589,12 @@ def test_kernels_raise_without_ops_tri(dev, world, wavefront):
     w16, prim, uu = _fused_case(world, dev, CameraConfig(), (32, 16), True)
     with pytest.raises(ValueError, match="ops_tri is None"):
         TM.sample_fused(w16, prim, uu[0], bare, 5, False, False)
+    ro, rd = generate_rays(CameraConfig(), (32, 16), device=dev)
+    w16, lists = TT.primary_inputs(world, ro, rd)
+    with pytest.raises(ValueError, match="ops_tri is None"):
+        TT.nearest_hit_fused(w16, bare, lists, TT.RAY_TILE)
+    with pytest.raises(ValueError, match="ops_tri is None"):
+        TT.trace_pallas(bare, ro, rd)
 
 
 # --------------------------------------------------------------------------

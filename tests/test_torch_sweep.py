@@ -159,14 +159,16 @@ def _sweep_rays(world, camera, res):
 
 
 @pytest.mark.parametrize("debug", [False, True], ids=["fast", "debug"])
-@pytest.mark.parametrize("name", ["cornell", "reference"])
+@pytest.mark.parametrize("name", ["cornell", "reference", "block_lists"])
 def test_padding_cut_is_exact(worlds, name, debug):
     """The sweep over the first n_valid triangles gives the full sweep's t
     and index bit for bit: a padding column (all zero: det = 0, t = NaN)
-    is never accepted, in the fast or the debug accept chain."""
+    is never accepted, in the fast or the debug accept chain.  The Cornell
+    box's one block holds 48 real triangles, the 72-block world's last
+    block 140."""
     world = _world(worlds, name)
     cam = CORNELL_CAM if name == "cornell" else CameraConfig()
-    w = _sweep_rays(world, cam, (24, 16))
+    w = _sweep_rays(world, cam, (12, 8) if name == "block_lists" else (24, 16))
     nb, tb, nv = world.block_aabb.shape[0], world.tri_block, world.n_valid
     assert nv < nb * tb  # the last block holds padding
     s = w @ world.fused_ops[:, :nb * 4 * tb]  # (R, nb * 4 * TB)
@@ -176,13 +178,184 @@ def test_padding_cut_is_exact(worlds, name, debug):
     assert torch.equal(t_cut.view(torch.int32), t_full.view(torch.int32))
     assert torch.equal(i_cut, i_full)
     assert (i_full < nv).all() and (i_full >= 0).sum() > 0
-    # and the plain version of kernels 2 and 4 agrees with both
+    # and the plain version of kernels 1, 2 and 4 agrees with both
     t_p, i_p = TT.nearest_hit_fused_plain(w, world.fused_ops, nb, tb, debug)
     assert torch.equal(t_p.view(torch.int32), t_full.view(torch.int32))
     assert torch.equal(i_p.long(), i_full)
 
 
+# --------------------------------------------------------------------------
+# kernel 1's worklists split over thread blocks
+# --------------------------------------------------------------------------
+
+
+def _merge_key(t, idx):
+    """csrc/trace_list.cu's merge_key before its inversion: the order of t
+    (-0.0 as +0.0) above the index above a flag for -0.0; the smallest key
+    is the best hit.  The kernel's unsigned 64-bit key less 2^63, so that
+    int64 orders it the same way."""
+    b = t.view(torch.int32).long() & 0xFFFFFFFF
+    neg = b >= 0x80000000
+    ord_ = torch.where(neg, 0xFFFFFFFF - b, b | 0x80000000)
+    ord_ = torch.where((b << 1) & 0xFFFFFFFF == 0, 0x80000000, ord_)
+    return ((ord_ - 0x80000000) << 32) | (idx.long() << 1) | (b == 0x80000000).long()
+
+
+def _merged_hit(key):
+    """csrc/trace_list.cu's merged_hit: (t, idx int32) of the smallest
+    keys; MISS_KEY is a miss."""
+    ord_ = (key >> 32) + 0x80000000
+    b = torch.where(ord_ >= 0x80000000, ord_ & 0x7FFFFFFF, 0xFFFFFFFF - ord_)
+    b = torch.where(key & 1 == 1, 0x80000000, b)
+    t = torch.where(b >= 0x80000000, b - (1 << 32), b).to(torch.int32).view(torch.float32)
+    idx = ((key & 0xFFFFFFFF) >> 1).to(torch.int32)
+    miss = key == MISS_KEY
+    return torch.where(miss, TT.F_MAX, t), torch.where(miss, -1, idx)
+
+
+MISS_KEY = (1 << 63) - 1
+
+
+def _sweep_entries(w, fused_ops, tb, n_valid, entries, debug):
+    """One thread block of kernel 1 on one chunk: the listed blocks in list
+    order, each cut at n_valid, the best replaced on a smaller t or an
+    equal finite t with a lower index (common.cuh sweep_rays)."""
+    best = torch.full((w.shape[0],), TT.F_MAX)
+    best_idx = torch.full((w.shape[0],), -1, dtype=torch.int64)
+    for blk in entries:
+        width = min(tb, n_valid - blk * tb)
+        if width <= 0:
+            continue
+        s = (w @ fused_ops[:, blk * 4 * tb:(blk + 1) * 4 * tb]).reshape(-1, 4, tb)[:, :, :width]
+        t, i = TT.accept_nearest(s.reshape(-1, 4 * width), width, debug)
+        g = i + blk * tb
+        better = (t < best) | ((t == best) & (t < TT.F_MAX) & (g < best_idx))
+        best = torch.where(better, t, best)
+        best_idx = torch.where(better, g, best_idx)
+    return best, best_idx
+
+
+def _chunked_trace(w, fused_ops, tb, n_valid, lists, ray_tile, chunk, debug=False):
+    """Kernel 1's split over thread blocks: each tile's list cut into chunks
+    of ``chunk`` entries, each chunk swept on its own, the chunks' bests
+    merged by the smallest merge key (a list that fits one chunk is written
+    directly)."""
+    ts, idxs = [], []
+    for tile in range(lists.shape[0]):
+        wt = w[tile * ray_tile:(tile + 1) * ray_tile]
+        entries = [int(b) for b in lists[tile] if b >= 0]
+        parts = [_sweep_entries(wt, fused_ops, tb, n_valid, entries[j:j + chunk], debug)
+                 for j in range(0, max(len(entries), 1), chunk)]
+        if len(parts) == 1:
+            t, i = parts[0]
+            ts.append(t)
+            idxs.append(i.to(torch.int32))
+            continue
+        key = torch.full((wt.shape[0],), MISS_KEY, dtype=torch.int64)
+        for t, i in parts:
+            key = torch.minimum(key, torch.where(i >= 0, _merge_key(t, i), MISS_KEY))
+        t, i = _merged_hit(key)
+        ts.append(t)
+        idxs.append(i)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def _assert_bits(a, b):
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1].to(torch.int32), b[1].to(torch.int32))
+
+
+@pytest.mark.parametrize("debug", [False, True], ids=["fast", "debug"])
+@pytest.mark.parametrize("chunk", [1, 2, 3, 6])
+def test_chunked_trace_equals_one_pass(worlds, chunk, debug):
+    """The reference scene's 6 blocks swept in chunks of 1, 2, 3 and all
+    6 entries and merged give the one-pass plain version bit for bit:
+    over full worklists in a shuffled order on every ray (degenerate rays
+    included), and over the tmin-sorted worklists on the live rays."""
+    world = _world(worlds, "reference")
+    nb, tb, nv = world.block_aabb.shape[0], world.tri_block, world.n_valid
+    tile = 64
+    w = _sweep_rays(world, CameraConfig(), (16, 16))
+    w = torch.cat([w, w[:(-w.shape[0]) % tile]])
+    one = TT.nearest_hit_fused_plain(w, world.fused_ops, nb, tb, debug)
+    g = torch.Generator().manual_seed(chunk)
+    full = torch.stack([torch.randperm(nb, generator=g) for _ in range(w.shape[0] // tile)])
+    _assert_bits(_chunked_trace(w, world.fused_ops, tb, nv, full, tile, chunk, debug), one)
+
+    ro, rd = generate_rays(CameraConfig(), (32, 16), device="cpu")
+    w16, lists = TT.primary_inputs(world, ro, rd)
+    assert (lists >= 0).sum(dim=1).max() > chunk or chunk == nb
+    t, i = _chunked_trace(w16, world.fused_ops, tb, nv, lists, TT.RAY_TILE, chunk, debug)
+    t_p, i_p = TT.nearest_hit_fused_plain(w16, world.fused_ops, nb, tb, debug)
+    n = ro.shape[0]
+    _assert_bits((t[:n], i[:n]), (t_p[:n], i_p[:n]))
+
+
+def _tie_world(tb: int = 128, nb: int = 3):
+    """A hand-built fused pack of ``nb`` blocks of ``tb`` triangles and the
+    ray d = (1, 0, 0) from the origin.  Triangle A (side values 0.25,
+    0.25, 0.5, t * det = 0) is hit at t = +0.0, its negation A' at t =
+    -0.0 (u, v the same); C (t * det = 2) at t = 2.0.  Returns (the pack,
+    a function placing a triangle at a global index, the ray vectors)."""
+    ops = torch.zeros((16, 4 * tb * nb))
+
+    def place(g, tri):
+        col = (g // tb) * 4 * tb + g % tb
+        for q, val in enumerate(tri[:3]):
+            ops[0, col + q * tb] = val  # row 0 pairs with d.x
+        ops[9, col + 3 * tb] = tri[3]  # row 9 pairs with the ray's -1
+
+    w = torch.zeros((tb, 16))
+    w[:, 0] = 1.0
+    w[:, 9] = -1.0
+    return ops, place, w
+
+
+A, A_NEG, C = (0.25, 0.25, 0.5, 0.0), (-0.25, -0.25, -0.5, -0.0), (0.25, 0.25, 0.5, -2.0)
+
+
+@pytest.mark.parametrize("first, second, want", [
+    # equal t = 2.0 either side of a chunk boundary: the lower index wins
+    ((C, 5), (C, 128 + 7), (2.0, 5)),
+    ((C, 128 + 7), (C, 260), (2.0, 135)),
+    # -0.0 and +0.0 tie as the sweep ties them: the lower index, its own zero
+    ((A, 3), (A_NEG, 128 + 1), (0.0, 3)),
+    ((A_NEG, 2), (A, 128 + 5), (-0.0, 2)),
+    ((A_NEG, 128 + 9), (A, 256 + 1), (-0.0, 137)),
+], ids=["t2-low-first", "t2-blocks-1-2", "plus-zero-low", "minus-zero-low", "minus-zero-mid"])
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+def test_chunk_merge_keeps_tie_order(first, second, want, chunk):
+    """Hand-built exact-t ties between blocks: split over chunks (in both
+    list orders) the merge gives the one-pass result, the lower index
+    with its own t bits (a -0.0 stays -0.0)."""
+    ops, place, w = _tie_world()
+    for tri, g in (first, second):
+        place(g, tri)
+    one = TT.nearest_hit_fused_plain(w, ops, 3, 128)
+    want_t = torch.tensor(want[0])
+    assert torch.equal(one[0].view(torch.int32), want_t.expand(128).view(torch.int32))
+    assert (one[1] == want[1]).all()
+    for order in ([0, 1, 2], [2, 1, 0], [1, 2, 0]):
+        lists = torch.tensor([order], dtype=torch.int32)
+        _assert_bits(_chunked_trace(w, ops, 128, 3 * 128, lists, 128, chunk), one)
+
+
+def test_merge_key_orders_hits():
+    """The merge key orders hits as the one-pass sweep's improve rule: by
+    t, -0.0 equal to +0.0, then by index; and decodes to the same bits."""
+    t = torch.tensor([-0.005, -0.0, 0.0, 0.0, -0.0, 1e-30, 1.5, 1.5, 9999998.0])
+    i = torch.tensor([7, 4, 3, 9, 1, 0, 2, 8, 5], dtype=torch.int32)
+    key = _merge_key(t, i)
+    order = torch.argsort(key)
+    assert order.tolist() == [0, 4, 2, 1, 3, 5, 6, 7, 8]
+    back_t, back_i = _merged_hit(key)
+    assert torch.equal(back_t.view(torch.int32), t.view(torch.int32)) and torch.equal(back_i, i)
+
+
 @pytest.mark.parametrize("source, name, value", [
+    ("trace_list.cu", "kRays", TT.TRACE_LIST_RAYS),
+    ("trace_list.cu", "kChunk", TT.TRACE_LIST_CHUNK),
+    ("trace_list.cu", "kSweepRun", TT.SWEEP_RUN),
     ("bounce.cu", "kRays", TM.BOUNCE_RAYS_PER_THREAD),
     ("bounce.cu", "kSweepRun", TM.SWEEP_RUN),
     ("megakernel.cu", "kSweepRun", TM.SWEEP_RUN),

@@ -44,7 +44,7 @@ def test_trace_pallas_matches_jax(reference):
     world, _, (ro, rd), jh, jidx = reference
     h = TT.trace_pallas(world, ro, rd)
     w16, lists = TT.primary_inputs(world, ro, rd)
-    _, idx = TT.nearest_hit_fused(w16, world.fused_ops, lists, TT.RAY_TILE, world.tri_block)
+    _, idx = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE)
     np.testing.assert_array_equal(np.maximum(idx[: ro.shape[0]].numpy(), 0), jidx)
     np.testing.assert_allclose(h.t.numpy(), np.asarray(jh.t), rtol=1e-6, atol=0)
     np.testing.assert_array_equal(h.mat_type.numpy(), np.asarray(jh.mat_type))
@@ -207,8 +207,6 @@ def test_wrapper_checks_devices(reference):
     w = torch.zeros((512, 16), device="meta")
     lists = torch.zeros((1, 6), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        TT.nearest_hit_fused(w, world.fused_ops.to("meta"), lists, 512, 512)
+        TT.nearest_hit_fused(w, world, lists, 512)
     with pytest.raises(ValueError, match="tiles"):
-        TT.nearest_hit_fused(
-            torch.zeros((100, 16)), world.fused_ops, torch.zeros((1, 6), dtype=torch.int32), 512, 512
-        )
+        TT.nearest_hit_fused(torch.zeros((100, 16)), world, torch.zeros((1, 6), dtype=torch.int32), 512)
