@@ -42,19 +42,26 @@ and read just after:
   ``MetricsLogger`` and under ``profile_trace``; and the four profiling
   scripts' ``main()`` (``pathtracerap_tpu_torch/scripts``) at full size.
 
-Kernels 1, 2 and 4 (``csrc/trace_list.cu``, ``csrc/bounce.cu``,
-``csrc/megakernel.cu``) must be bit for bit their plain versions: kernel
-1's t and index on every live ray at each of its shapes (the parity
-primaries, the render's slab, the Cornell box's primaries, the
-megascene's primaries from two cameras), kernel 2's state on every ray
-and its index on every live ray, kernel 4's contribution and index
-stream, in every mode.  Their kernel lines give R (rays per thread), the
-registers and spills (``ptxas -v``), for kernel 1 its chunk (worklist
-entries a thread block sweeps) and, beside the time of a slab (its launch
-on the renders), the whole frame's, for kernel 4 the pairs its compacted
-sweep issues beside the live pairs of its bound.  Kernel 1's phase lines
-also give each shape's list lengths, live (ray, triangle) pairs, the SM
-clock nvidia-smi reads while it runs and the pairs per SM clock at it.
+Kernels 1 to 4 (``csrc/trace_list.cu``, ``csrc/bounce.cu``,
+``csrc/bounce_trace.cu``, ``csrc/megakernel.cu``) must be bit for bit
+their plain versions: kernel 1's t and index on every live ray at each of
+its shapes (the parity primaries, the render's slab, the Cornell box's
+primaries, the megascene's primaries from two cameras), kernel 2's state
+on every ray and its index on every live ray, kernel 3's t and index on
+every live ray, kernel 4's contribution and index stream, in every mode.
+Kernel 5 without its gate must find the plain version's index on every
+live ray; with it, the same but for phantom accepts from inside the room,
+and misses on a wavefront with no live ray.  Their kernel lines give R
+(rays per thread), the registers and spills (``ptxas -v``), for kernel 1
+its chunk (worklist entries a thread block sweeps) and, beside the time
+of a slab (its launch on the renders), the whole frame's, for kernel 3 the
+SM clock nvidia-smi reads while it runs and the live pairs per SM clock
+at it, for kernel 4 the pairs its compacted sweep issues beside the live
+pairs of its bound, for kernel 5 its group width G, the box tests its
+two-level gate made beside the per-cluster gate's and the time of a dead
+wavefront; no kernel's time may read below its bound.  Kernel 1's phase
+lines also give each shape's list lengths, live (ray, triangle) pairs,
+the SM clock and the pairs per SM clock.
 
 Kernel times are device times (``cuda_ms``): CUDA events around many
 calls queued behind a spin on the stream, so that the host's enqueue
@@ -98,7 +105,6 @@ SAMPLE_BATCH = 4
 K1_IDX_SHARE, K1_T_REL = 0.9999, 1e-5
 K1_CASES = ("parity_primaries", "render_slab", "cornell_primaries")
 K2_HIT_SHARE, K2_STATE_ABS = 0.9999, 1e-4
-K3_IDX_SHARE, K3_T_REL = 0.9999, 1e-5
 TRAIN_SPP, TRAIN_STEPS = 8, 3  # bench.py:89-90
 SMALL_RES, SMALL_SPP, SMALL_BOUNCES = (32, 16), 2, 4
 LOSS_RTOL, GRAD_RTOL = 1e-5, 1e-4
@@ -127,7 +133,7 @@ MEGASCENE_BLOCKS = 701
 # peak, HBM3 bandwidth)
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PAIR_FLOPS = 47  # per (ray, triangle): 22 FMAs, det, division, t/u/v, accept chain
-GATE_FLOPS = 28  # per (live ray, cluster) of kernel 5: 6 sub, 6 mul, 10 min/max, 6 for the tests
+GATE_FLOPS = 28  # per (live ray, box) test of kernel 5: 6 sub, 6 mul, 10 min/max, 6 for the tests
 # the profiling kernels at the scripts' sizes (scripts/prof_kernel_parts.py:26-30)
 PROF_N, PROF_R, PROF_TB, PROF_NB = 800256, 512, 512, 8
 PROF_RTOL, PROF_CHAIN_SHARE = 1e-5, 0.999
@@ -405,15 +411,17 @@ def bounce1_wavefront(world, dev, camera=None, resolution=RESOLUTION, bounces=MA
 
 
 def kernel_build(kernel: str) -> dict:
-    """Registers, spills and shared memory of the fast instantiation of
-    kernel 1 (``trace_list``), 2 (``bounce``) or 4 (``sample_fused``),
+    """Registers, spills and shared memory of kernel 1 (``trace_list``),
+    2 (``bounce``), 3 (``bounce_trace``), 4 (``sample_fused``) or 5
+    (``nearest_hit``), the fast instantiation of those with a debug form,
     from the build log (``ptxas -v``)."""
     from pathtracerap_tpu_torch.kernels import _build
 
-    mangled = {"trace_list": "17trace_list_kernel", "bounce": "13bounce_kernel",
-               "sample_fused": "19sample_fused_kernel"}[kernel]
+    mangled = {"trace_list": "_Z17trace_list_kernelILb0E", "bounce": "_Z13bounce_kernelILb0E",
+               "bounce_trace": "_Z19bounce_trace_kernel", "sample_fused": "_Z19sample_fused_kernelILb0E",
+               "nearest_hit": "_Z18nearest_hit_kernel"}[kernel]
     res = _build.kernel_resources()
-    (key,) = [k for k in res if f"{mangled}ILb0E" in k]
+    (key,) = [k for k in res if k.startswith(mangled)]
     return res[key]
 
 
@@ -479,10 +487,14 @@ def kernel3_vs_plain(world, dev):
     """Kernel 3 against its plain version on the wavefront the diff
     forward's first bounce traces (bounce 1 of the first 4-sample group of
     the first slab; the slab is a multiple of the diff forward's 512-ray
-    padding, so the same rows)."""
+    padding, so the same rows): t and index bit-equal on every live ray, a
+    miss on the rays of a tile with no live ray.  With R, registers, spills,
+    the SM clock read while it runs and the live pairs per SM clock."""
     import torch
 
-    from pathtracerap_tpu_torch.kernels.megakernel import bounce_trace, bounce_trace_plain
+    from pathtracerap_tpu_torch.kernels.megakernel import (
+        BOUNCE_TRACE_RAYS_PER_THREAD, bounce_trace, bounce_trace_plain,
+    )
 
     pack, _, lists, unit, ray_tile = bounce1_wavefront(world, dev)
 
@@ -500,22 +512,28 @@ def kernel3_vs_plain(world, dev):
     both = agree & (c_p > 0)
     d = (t_k - t_p).abs()[both]
     max_abs = d.max().item() if d.numel() else 0.0
-    rel = (d / t_p[both].abs().clamp_min(1e-30)).max().item() if d.numel() else 0.0
     dead_tile = ~live.reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
     res = {
         "rays": pack.shape[0], "live": int(live.sum().item()), "ray_tile": ray_tile, "unit": unit,
+        "mean_list_len": (lists >= 0).sum(dim=1).float().mean().item(),
         "hit_share": (c_p[live] > 0).float().mean().item(), "idx_equal_share": share,
         "t_bit_equal_share": (t_k.view(torch.int32) == t_p.view(torch.int32))[live].float().mean().item(),
-        "max_rel_t": rel, "max_abs_err": max_abs,
+        "max_abs_err": max_abs,
         "dead_tiles_miss": bool((c_k[dead_tile] == 0).all() and (t_k[dead_tile] == F_MAX).all()),
     }
-    check(share >= K3_IDX_SHARE, f"kernel 3 idx equal share {share} >= {K3_IDX_SHARE}")
-    check(rel <= K3_T_REL, f"kernel 3 max rel t diff {rel} <= {K3_T_REL}")
+    check(share == 1.0 and res["t_bit_equal_share"] == 1.0,
+          f"kernel 3 bit-equal on live rays: index share {share}, t {res['t_bit_equal_share']}")
     check(res["dead_tiles_miss"], "kernel 3 writes a miss for tiles with no live ray")
+    res["rays_per_thread"] = BOUNCE_TRACE_RAYS_PER_THREAD
+    res.update(kernel_build("bounce_trace"))
+    res["pairs"] = list_pairs(lists, live, ray_tile, unit, world.n_valid)
     res["ms"] = cuda_ms(kern, host=res)
     res["plain_ms"] = cuda_ms(plain, lead=False)
-    res.update(bound(PAIR_FLOPS * list_pairs(lists, live, ray_tile, unit, world.n_valid),
-                     nbytes(pack, lists, world.fused_ops, t_k, c_k)))
+    card = card_while_running(kern, per_sync=max(1, round(20.0 / res["ms"])))
+    res["sm_clock_mhz"] = statistics.median(card["sm_clock_mhz"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    res["pairs_per_sm_clock"] = res["pairs"] / (res["ms"] * 1e3 * sms * res["sm_clock_mhz"])
+    res.update(bound(PAIR_FLOPS * res["pairs"], nbytes(pack, lists, world.ops_tri, t_k, c_k)))
     return res
 
 
@@ -1087,87 +1105,145 @@ def _phantoms(world, w, wo, idx):
     unculled sweep finds such a phantom."""
     import torch
 
-    from pathtracerap_tpu_torch.kernels.trace import DENSE_RUN, _cluster_margin
+    from pathtracerap_tpu_torch.kernels.trace import DENSE_RUN, _cluster_margin, slab_reaches
 
-    box = world.cluster_aabb[:6, idx.long() // DENSE_RUN].T  # (R, 6)
-    d = w[:, 0:3]
-    d = torch.where(d.abs() < 1e-12, torch.where(d < 0, -1e-12, 1e-12), d)
-    lo = (box[:, 0:3] - wo[:, 0:3]) / d
-    hi = (box[:, 3:6] - wo[:, 0:3]) / d
-    tmin = torch.minimum(lo, hi).amax(dim=1)
-    tmax = torch.maximum(lo, hi).amin(dim=1)
-    margin = _cluster_margin(world.cluster_aabb)
-    return ~((tmax >= -margin) & (tmin <= tmax + margin))
+    box = world.cluster_aabb[:6, idx.long() // DENSE_RUN]  # (6, R)
+    far = torch.full((idx.numel(),), float("inf"), device=w.device)
+    reach = slab_reaches(box, wo[:, 0:3], w[:, 0:3], _cluster_margin(world.cluster_aabb), far)
+    return ~reach.diagonal()
 
 
-def _dense_compare(world, w, wo, plain_rows=None, phantoms_ok=False):
+def _dense_compare(world, w, wo, plain_rows=None, phantoms_ok=False, live_rows=False):
     """Kernel 5 against its plain version on one wavefront (the plain
-    version on its first ``plain_rows`` rays when given): equal indices on
-    live rays, relative t, the (ray, triangle) pairs the kernel swept and
-    the dense pairs, times and the bound.  The unculled kernel must agree
-    with the plain version; with ``phantoms_ok`` the culled kernel may
-    differ on rays whose plain winner is a phantom (:func:`_phantoms`)."""
+    version on its first ``plain_rows`` rays when given, or with
+    ``live_rows`` its first ``plain_rows`` live ones): the unculled
+    kernel's index equal on every live ray; the culled kernel's too, or
+    with ``phantoms_ok`` different only on rays whose plain winner is a
+    phantom (:func:`_phantoms`); relative t, the runs swept and the box
+    tests made (group and cluster, each by every live ray of a tile)
+    beside the per-cluster gate's (every live ray, every run), times and
+    the bound (the swept pairs and the tests made)."""
     import torch
 
     from pathtracerap_tpu_torch.kernels.trace import (
-        DENSE_RUN, DENSE_TILE, _dense_runs, nearest_hit, nearest_hit_plain,
+        DENSE_RUN, DENSE_TILE, nearest_hit, nearest_hit_plain,
     )
+    from pathtracerap_tpu_torch.ops.plucker import dense_runs
 
     n = w.shape[0]
-    m = min(n, plain_rows or n)
-    swept = torch.zeros(n // DENSE_TILE, dtype=torch.int32, device=w.device)
+    if live_rows:
+        sel = torch.nonzero(wo[:, 4] > 0).flatten()[:plain_rows]
+    else:
+        sel = torch.arange(min(n, plain_rows or n), device=w.device)
+    m = sel.numel()
+    # the plain version's rays, padded with dead ones to whole tiles for the unculled kernel
+    pad = (-m) % DENSE_TILE
+    w_p = torch.cat([w[sel], w.new_zeros((pad, 8))])
+    wo_p = torch.cat([wo[sel], wo.new_zeros((pad, 8))])
+    nt = n // DENSE_TILE
+    swept = torch.zeros(nt, dtype=torch.int32, device=w.device)
+    tests = torch.zeros((nt, 2), dtype=torch.int32, device=w.device)
     ops = (world.edge_mat, world.plane_mat, world.cluster_aabb)
 
     def kern():
-        return nearest_hit(w, wo, *ops, cull=True, n_valid=world.n_valid, swept=swept)
+        return nearest_hit(w, wo, *ops, cull=True, n_valid=world.n_valid, swept=swept,
+                           group_aabb=world.group_aabb, tests=tests)
 
     def plain():
-        return nearest_hit_plain(w[:m], wo[:m], world.edge_mat, world.plane_mat, world.n_valid)
+        return nearest_hit_plain(w[sel], wo[sel], world.edge_mat, world.plane_mat, world.n_valid)
 
     t_k, i_k = kern()
     t_p, i_p = plain()
-    t_n, i_n = nearest_hit(w[:m], wo[:m], *ops, cull=False, n_valid=world.n_valid)
+    t_n, i_n = nearest_hit(w_p, wo_p, *ops, cull=False, n_valid=world.n_valid,
+                           group_aabb=world.group_aabb)
+    t_n, i_n = t_n[:m], i_n[:m]
     torch.cuda.synchronize()
-    live = wo[:m, 4] > 0
-    n_share = (((i_n == i_p) & live).sum() / live.sum().clamp_min(1)).item()
-    check(n_share >= K5_IDX_SHARE, f"unculled kernel 5 idx equal share {n_share} >= {K5_IDX_SHARE}")
-    same = (i_k[:m] == i_p) & live
-    share = (same.sum() / live.sum().clamp_min(1)).item()
+    live = wo[sel, 4] > 0
+    n_lv = int(live.sum().item())  # a share over no live ray is 1
+
+    def live_share(x):
+        return (x & live).sum().item() / n_lv if n_lv else 1.0
+
+    n_share = live_share(i_n == i_p)
+    check(n_share == 1.0, f"unculled kernel 5 index equal on every live ray: share {n_share}")
+    same = (i_k[sel] == i_p) & live
+    share = live_share(same)
     differ = torch.nonzero(live & ~same).flatten()
-    phantom = _phantoms(world, w[differ], wo[differ], i_p[differ])
+    phantom = _phantoms(world, w[sel[differ]], wo[sel[differ]], i_p[differ])
     if phantoms_ok:
         check(bool(phantom.all()), "the culled kernel 5 differs only on phantom accepts")
     else:
         check(share >= K5_IDX_SHARE, f"kernel 5 idx equal share {share} >= {K5_IDX_SHARE}")
     both = same & (i_p >= 0)
-    d = (t_k[:m] - t_p).abs()[both]
+    d = (t_k[sel] - t_p).abs()[both]
     max_abs = d.max().item() if d.numel() else 0.0
     rel = (d / t_p[both].abs().clamp_min(1e-30)).max().item() if d.numel() else 0.0
     check(rel <= K5_T_REL, f"kernel 5 max rel t diff {rel} <= {K5_T_REL}")
     live_all = wo[:, 4] > 0
     n_live = int(live_all.sum().item())
-    runs = _dense_runs(world.plane_mat.shape[1], world.n_valid)
-    live_tile = live_all.reshape(-1, DENSE_TILE).sum(dim=1)
+    runs = dense_runs(world.plane_mat.shape[1], world.n_valid)
+    live_tile = live_all.reshape(-1, DENSE_TILE).sum(dim=1).long()
     swept_pairs = int((swept.long() * live_tile).sum().item()) * DENSE_RUN
+    group_tests = int((tests[:, 0].long() * live_tile).sum().item())
+    cluster_tests = int((tests[:, 1].long() * live_tile).sum().item())
     res = {
-        "rays": n, "live": n_live, "plain_rays": m, "triangles": world.n_valid, "runs": runs,
-        "hit_share": (i_p[live] >= 0).float().mean().item(), "idx_equal_share": share,
+        "rays": n, "live": n_live, "live_tiles": int((live_tile > 0).sum().item()),
+        "plain_rays": m, "triangles": world.n_valid, "runs": runs,
+        "hit_share": live_share(i_p >= 0), "idx_equal_share": share,
         "unculled_idx_equal_share": n_share,
-        "unculled_t_bit_equal_share": (t_n.view(torch.int32) == t_p.view(torch.int32))[live]
-        .float().mean().item(),
+        "unculled_t_bit_equal_share": live_share(t_n.view(torch.int32) == t_p.view(torch.int32)),
         "differing_rays": differ.numel(), "phantom_rays": int(phantom.sum().item()),
-        "t_bit_equal_share": (t_k[:m].view(torch.int32) == t_p.view(torch.int32))[live]
-        .float().mean().item(),
+        "t_bit_equal_share": live_share(t_k[sel].view(torch.int32) == t_p.view(torch.int32)),
         "max_rel_t": rel, "max_abs_err": max_abs,
         "mean_runs_swept": swept.float().mean().item(),
         "pairs_swept": swept_pairs, "dense_pairs": n_live * world.n_valid,
-        "gate_tests": n_live * runs,
+        "group_tests": group_tests, "cluster_tests": cluster_tests,
+        "gate_tests": group_tests + cluster_tests, "gate_tests_flat": n_live * runs,
     }
     res["ms"] = cuda_ms(kern, host=res)
     res["plain_ms"] = cuda_ms(plain, 10 if plain_rows is None else 3, lead=False)
-    # the swept pairs' accept chains and every live ray's slab test of every cluster
-    res.update(bound(PAIR_FLOPS * swept_pairs + GATE_FLOPS * n_live * runs,
-                     nbytes(w, wo, *ops, t_k, i_k)))
+    # the swept pairs' accept chains and the live rays' slab tests the gate
+    # made; the bytes: the rays, the results and counts, the group boxes,
+    # and of the cluster boxes and runs the tiles read at least those of the
+    # tile that tested and swept most (6 floats a box; 22 staged floats a
+    # triangle, edge rows 0-5 and plane rows 0-3)
+    res["clusters_read_at_least"] = int(tests[:, 1].max().item())
+    res["runs_read_at_least"] = int(swept.max().item())
+    read = (res["clusters_read_at_least"] * 6 + res["runs_read_at_least"] * DENSE_RUN * 22) * 4
+    res.update(bound(PAIR_FLOPS * swept_pairs + GATE_FLOPS * res["gate_tests"],
+                     nbytes(w, wo, world.group_aabb[:6], t_k, i_k, swept, tests) + read))
+    return res
+
+
+def _dense_dead(world, w, wo):
+    """Kernel 5 on a wavefront with no live ray: (F_MAX, -1) on every ray,
+    no run swept and no box tested, culled or not; its time (no plain
+    version runs: a dead ray's result is unspecified)."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels.trace import DENSE_TILE, nearest_hit
+
+    nt = w.shape[0] // DENSE_TILE
+    res = {"rays": w.shape[0], "live": int((wo[:, 4] > 0).sum().item())}
+    check(res["live"] == 0, "the dead wavefront has no live ray")
+    for cull in (True, False):
+        swept = torch.full((nt,), -1, dtype=torch.int32, device=w.device)
+        tests = torch.full((nt, 2), -1, dtype=torch.int32, device=w.device)
+
+        def kern():
+            return nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
+                               cull=cull, n_valid=world.n_valid, swept=swept,
+                               group_aabb=world.group_aabb, tests=tests)
+
+        t, idx = kern()
+        torch.cuda.synchronize()
+        check(bool((t == F_MAX).all() and (idx == -1).all()), "kernel 5 misses on a dead wavefront")
+        check(bool((swept == 0).all() and (tests == 0).all()),
+              "kernel 5 sweeps and tests nothing on a dead wavefront")
+        res["ms" if cull else "unculled_ms"] = cuda_ms(kern)
+    # the bytes it must move: the rays in, the result out
+    res.update(bound(0.0, nbytes(w, wo, t, idx)))
+    res["max_abs_err"] = 0.0
     return res
 
 
@@ -1176,15 +1252,16 @@ def kernel5_vs_plain(big_scene, dev):
     pack): the 512x512 primaries and the bounce-1 wavefront the per-bounce
     engine traces next (unsorted, dead rays in place) of the suite's room
     camera and of INSIDE_CAMERA, each held against the plain version on
-    its first PLAIN_SLICE rays; and the reference scene baked without a
-    pack at 1000x800 against a full plain sweep.  Returns (results, the
-    big world)."""
+    its first PLAIN_SLICE rays; the room camera's bounce-2 wavefront (few
+    live rays), and the same rays with none live; and the reference scene
+    baked without a pack at 1000x800 against a full plain sweep.  With R,
+    G, registers and spills.  Returns (results, the big world)."""
     import torch
 
     from pathtracerap_tpu_torch import CameraConfig, build_reference_scene
     from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
-    from pathtracerap_tpu_torch.kernels.trace import dense_inputs, trace_pallas
-    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+    from pathtracerap_tpu_torch.kernels.trace import DENSE_RAYS, dense_inputs, trace_pallas
+    from pathtracerap_tpu_torch.ops.plucker import CLUSTER_GROUP, bake_world_triangles
     from pathtracerap_tpu_torch.ops.rng import chunk_uniforms, prng_key
     from pathtracerap_tpu_torch.render.camera import generate_rays
     from pathtracerap_tpu_torch.render.shade import RayState, shade
@@ -1194,7 +1271,10 @@ def kernel5_vs_plain(big_scene, dev):
     world = bake_world_triangles(big_scene)
     torch.cuda.synchronize()
     res = {"bake_s": time.perf_counter() - t0, "triangles": world.n_valid,
-           "padded": world.plane_mat.shape[1], "has_pack": world.fused_ops is not None}
+           "padded": world.plane_mat.shape[1], "has_pack": world.fused_ops is not None,
+           "rays_per_thread": DENSE_RAYS, "group": CLUSTER_GROUP,
+           "groups": world.group_aabb.shape[1]}
+    res.update(kernel_build("nearest_hit"))
     check(world.fused_ops is None and world.n_valid == BEYOND_TRIANGLES,
           f"the {BEYOND_TRIANGLES}-triangle world has no fused pack")
     for tag, cam in (("", _ROOM_CAMERA), ("inside_", CameraConfig(**INSIDE_CAMERA))):
@@ -1211,6 +1291,12 @@ def kernel5_vs_plain(big_scene, dev):
             world, *dense_inputs(st.orig, st.dir, st.remaining > 0), plain_rows=PLAIN_SLICE,
             phantoms_ok=inside,
         )
+        if not inside:
+            st = shade(st, trace_pallas(world, st.orig, st.dir, alive=st.remaining > 0), u[:, 4:8])
+            alive = st.remaining > 0
+            res["bounce2"] = _dense_compare(world, *dense_inputs(st.orig, st.dir, alive),
+                                            plain_rows=PLAIN_SLICE, live_rows=True)
+            res["dead"] = _dense_dead(world, *dense_inputs(st.orig, st.dir, torch.zeros_like(alive)))
     ref = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
     ro, rd = generate_rays(CameraConfig(), RESOLUTION, device=dev)
     res["reference_primary"] = _dense_compare(ref, *dense_inputs(ro, rd))
@@ -1982,7 +2068,7 @@ def main() -> int:
         out.update(extra if isinstance(extra, dict) else {key: k[key] for key in extra})
         return out
 
-    # kernels 2 and 4: rays a thread sweeps, the build's registers and spills
+    # kernels 2 to 5: rays a thread sweeps, the build's registers and spills
     sweep = ("rays_per_thread", "registers", "spill_stores", "spill_loads")
     # kernel 1: the same and its chunk; its rows are its main paths' launches,
     # one a slab, with the whole frame's time beside
@@ -1999,13 +2085,18 @@ def main() -> int:
         entry("bounce", "bounce.cu", pallas + "megakernel.py:1666", mp["bounce_launches"], k2,
               extra=sweep),
         entry("bounce_trace", "bounce_trace.cu", pallas + "megakernel.py:1846",
-              ts["bounce_trace_launches"], k3),
+              ts["bounce_trace_launches"], k3, extra=sweep + ("sm_clock_mhz", "pairs_per_sm_clock")),
         entry("megakernel", "megakernel.cu", pallas + "megakernel.py:1206",
               qr["sample_fused_launches"], k4q, max(m["max_abs_err"] for m in k4.values()),
               extra=sweep + ("pairs_swept", "pairs_live")),
-        # the beyond-pack render's bounces are its launches: the bounce-1 wavefront's numbers
+        # the beyond-pack render's bounces are its launches: the bounce-1
+        # wavefront's numbers, with the gate tests made, and the time of a
+        # wavefront with no live ray
         entry("nearest_hit", "nearest_hit.cu", pallas + "trace.py:54", bp["nearest_hit_launches"],
-              k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict))),
+              k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict)),
+              extra={**{key: k5[key] for key in sweep + ("group",)},
+                     "gate_tests": k5["bounce1"]["gate_tests"],
+                     "dead_wavefront_ms": k5["dead"]["ms"]}),
         # the TPU kernels' streamed modes, at the megascene's 701 blocks
         entry("trace_list_701_blocks", "trace_list.cu", pallas + "trace.py:222",
               mega["trace_list_launches"], mega["kernel1_slab0"],
@@ -2034,6 +2125,8 @@ def main() -> int:
                          pk["empty_with_ops"]))
     kernels.append(entry("prof_argmin", "prof_argmin.cu", "scripts/prof_r5_shade.py:96",
                          ps["launches"]["argmin_int"], pk["argmin_int"]))
+    for k in kernels:
+        check(k["ms"] >= k["bound_ms"], f"{k['name']}: {k['ms']} ms not below its bound {k['bound_ms']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops.plucker import tri_major_ops
+from .ops.plucker import cluster_group_aabb, tri_major_ops
 from .scene.types import SceneDevice, WorldTriangles
 
 _INT_FIELDS = ("tri_block", "n_valid", "n_world_valid")
@@ -42,11 +42,13 @@ def scene_from_numpy(fields: dict, device) -> SceneDevice:
 
 def world_from_numpy(fields: dict, device) -> WorldTriangles:
     """A :class:`WorldTriangles` on ``device`` from the JAX one's fields,
-    with the triangle-major ``ops_tri`` kernels 2 and 4 stage, which the JAX
-    world does not hold, made from its ``fused_ops``."""
+    with what the JAX world does not hold: the triangle-major ``ops_tri``
+    kernels 1 to 4 stage, made from its ``fused_ops``, and kernel 5's group
+    boxes, made from its ``cluster_aabb``."""
     world = _from_numpy(WorldTriangles, fields, device)
     if world.fused_ops is not None:
         world.ops_tri = tri_major_ops(world.fused_ops, world.tri_block)
+    world.group_aabb = cluster_group_aabb(world.cluster_aabb, world.n_valid)
     return world
 
 

@@ -7,61 +7,101 @@
 // (FLOAT_MAX, 0); otherwise each ray finds the nearest accepted triangle
 // over its tile's sub-block worklist, exact-t ties to the lowest baked
 // index, and writes its t (FLOAT_MAX on a miss) and the triangle's baked
-// index + 1 (0 on a miss).  The differentiable forward (diff/fast.py)
-// records that index stream and shades in torch.
+// index + 1 (0 on a miss).  A dead ray of a live tile gets an unspecified
+// result.  The differentiable forward (diff/fast.py) records that index
+// stream and shades in torch.
 //
-// What bounds it on the H100: as kernels 1 and 2, FP32 FMA throughput in the
-// sweep -- about 50 flops per (ray, triangle) against 88 bytes of shared
-// operands.  The design is kernel 2's without its shading: one thread
-// block per 256-ray tile, one thread per ray; the tile's worklist holds
-// 128-triangle sub-block ids sorted by entry distance, and for each entry
-// the threads stage its 22 operand rows (11 KB) in shared memory and
-// sweep it.  The TPU kernel groups the sub-blocks by four into 512-wide
+// What bounds it on the H100: as kernels 1 and 2, the sweep's instruction
+// issue, about 40 instructions per (ray, triangle) pair (common.cuh
+// sweep_rays).  The first port (one thread per ray, two barriers and a
+// synchronous staging of the column-major pack per worklist entry, then
+// 22 scalar shared loads and a division per pair) was bound by the SM's
+// shared-memory load pipe.  The design is kernel 2's sweep without its
+// shading: one thread block per ray tile of `ray_tile / R` threads, R =
+// kRays; each thread owns R rays of the sorted tile, strided by
+// `ray_tile / R` so that the state loads and the stores stay coalesced,
+// and sweeps them together (six 16-byte shared loads a triangle for R
+// rays, the division only where a ray may be accepted).  The wavefront is
+// sorted with dead rays last, so the live rays of a tile are a prefix and
+// a thread with no live ray skips the sweep.  The worklist's 128-triangle
+// runs of the triangle-major pack ops_tri are staged by 16-byte cp.async
+// into two shared buffers, run j + 1 landing while run j is swept, one
+// barrier a run, and the sweep stops at the last real triangle (padding
+// is never accepted).  Kernel 1's split of a list over several thread
+// blocks is not needed: the reference scene's lists hold at most 24
+// sub-blocks.  The TPU kernel groups the sub-blocks by four into 512-wide
 // MXU slabs and selects the winner's column with a one-hot argmin; here
-// each thread keeps its (t, index) best in registers, so neither is needed.
+// each thread keeps its (t, index) bests in registers, so neither is
+// needed.
 
 #include "common.cuh"
 
-__global__ void bounce_trace_kernel(const float* __restrict__ state,  // (N, 10)
-                                    const int* __restrict__ lists,    // (nt, list_w)
+namespace {
+
+constexpr int kSweepRun = 128;  // triangles staged per shared-memory run
+// rays a thread carries through the sweep (R): chosen on the card, PERF.md
+// (kernels/megakernel.py BOUNCE_TRACE_RAYS_PER_THREAD mirrors it)
+constexpr int kRays = 2;
+
+}  // namespace
+
+__global__ void bounce_trace_kernel(const float* __restrict__ state,    // (N, 10)
+                                    const int* __restrict__ lists,      // (nt, list_w)
                                     int list_w, int unit,
-                                    const float* __restrict__ ops,    // (16, ops_cols)
-                                    int ops_cols, int tri_block,
-                                    float* __restrict__ t_out,        // (N,)
-                                    int* __restrict__ col_out) {      // (N,) index + 1, 0: miss
-  extern __shared__ float sm[];
+                                    const float* __restrict__ ops_tri,  // (T, 24) triangle-major pack
+                                    int n_tris,                         // real triangles
+                                    float* __restrict__ t_out,          // (N,)
+                                    int* __restrict__ col_out) {        // (N,) index + 1, 0: miss
+  __shared__ float4 run[2][kSweepRun * 6];
   const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  const float* s = state + ray * 10;
-  if (!__syncthreads_or(s[9] > 0.0f)) {  // no live ray in the tile
-    t_out[ray] = PTT_F_MAX;
-    col_out[ray] = 0;
-    return;
+  // this thread's rays: base + k * stride, k < kRays
+  const int stride = blockDim.x;
+  const size_t base = (size_t)tile * stride * kRays + threadIdx.x;
+
+  RayVec r[kRays];
+  float best[kRays];
+  int best_idx[kRays];
+  bool live = false;  // whether any of this thread's rays is live
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const float* sk = state + (base + (size_t)k * stride) * 10;
+    float s[10];
+    for (int c = 0; c < 10; ++c) s[c] = sk[c];
+    live = live || s[9] > 0.0f;
+    r[k] = state_ray(s);
+    best[k] = PTT_F_MAX;
+    best_idx[k] = -1;
   }
-  const RayVec r = state_ray(s);
-  float best = PTT_F_MAX;
-  int best_idx = -1;
-  const int* row = lists + (size_t)tile * list_w;
-  for (int j = 0; j < list_w; ++j) {
-    const int id = row[j];
-    if (id < 0) break;  // -1 padding is a suffix of the row
-    __syncthreads();    // the previous entry's rows are no longer read
-    stage_ops(sm, ops, ops_cols, id * unit, unit, tri_block);
-    __syncthreads();
-    sweep(sm, unit, id * unit, r, best, best_idx);
+  if (__syncthreads_or(live)) {  // else no live ray in the tile: every ray misses
+    RunCursor<kSweepRun> cur = {lists + (size_t)tile * list_w, list_w, unit, n_tris, 0, 0, -1};
+    cur.start();
+    if (!cur.done()) stage_tri_async(run[0], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
+    for (int buf = 0; !cur.done(); buf ^= 1) {
+      const int g0 = cur.g0();
+      const int width = min(kSweepRun, n_tris - g0);
+      cur.next();
+      cp_async_wait_all();
+      __syncthreads();  // run `buf` is in for every thread; run buf ^ 1 is no longer read
+      if (!cur.done()) {
+        stage_tri_async(run[buf ^ 1], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
+      }
+      if (live) sweep_rays<kRays>(run[buf], width, g0, r, best, best_idx);
+    }
   }
-  t_out[ray] = best;
-  col_out[ray] = best_idx + 1;  // best_idx is -1 exactly when best is FLOAT_MAX
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const size_t ray = base + (size_t)k * stride;
+    t_out[ray] = best[k];
+    col_out[ray] = best_idx[k] + 1;  // best_idx is -1 exactly when best is FLOAT_MAX
+  }
 }
 
 extern "C" int ptt_bounce_trace(const float* state, const int* lists, int nt, int list_w,
-                                int unit, int ray_tile, const float* ops, int ops_cols,
-                                int tri_block, float* t_out, int* col_out, void* stream) {
+                                int unit, int ray_tile, const float* ops_tri, int n_tris,
+                                float* t_out, int* col_out, void* stream) {
   if (nt == 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)PTT_ROWS * unit * sizeof(float);
-  cudaError_t err = set_smem(bounce_trace_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  bounce_trace_kernel<<<nt, ray_tile, smem, (cudaStream_t)stream>>>(
-      state, lists, list_w, unit, ops, ops_cols, tri_block, t_out, col_out);
+  if (ray_tile % (32 * kRays)) return (int)cudaErrorInvalidValue;
+  bounce_trace_kernel<<<nt, ray_tile / kRays, 0, (cudaStream_t)stream>>>(
+      state, lists, list_w, unit, ops_tri, n_tris, t_out, col_out);
   return (int)cudaGetLastError();
 }

@@ -8,21 +8,21 @@
 // every other entry is zero.  A ray's vector is [dir, orig x dir, orig, -1].
 //
 // The triangle-major pack `ops_tri` (T, 24) holds, per triangle, the same
-// 22 non-zero entries in stage_ops' row order (s_ab rows 0-5, s_bc rows
-// 0-5, s_ca rows 0-5, plane rows 6-9) and two zero pads: 96 bytes, so a
-// run of triangles is one contiguous, 16-byte aligned span that 16-byte
-// cp.async copies stage, and six 16-byte shared loads bring a triangle's
-// operands into registers.
+// 22 non-zero entries (s_ab rows 0-5, s_bc rows 0-5, s_ca rows 0-5, plane
+// rows 6-9) and two zero pads: 96 bytes, so a run of triangles is one
+// contiguous, 16-byte aligned span that 16-byte cp.async copies stage, and
+// six 16-byte shared loads bring a triangle's operands into registers.
+// Kernel 5's packless world has no ops_tri: it writes its runs into shared
+// memory in the same order from the dense operands.
 //
-// What bounds a sweep on the H100.  `sweep` (kernels 3 and 5) loads a
-// (ray, triangle) pair's 22 operands as 22 scalar shared loads and is
-// bound by the SM's shared-memory load pipe, about one warp-wide load a
-// clock.  `sweep_rays` (kernels 1, 2 and 4) loads a triangle once as six
-// 16-byte broadcasts for the thread's R rays, and runs the division and
-// the accept chain only for pairs that a division-free test cannot reject
-// (may_accept); a pair then costs its 22 FMAs, the determinant and the
-// test, about 40 instructions, and the instruction issue bounds it.  The
-// old `sweep` and `stage_ops` stay until kernels 3 and 5 move over.
+// What bounds a sweep on the H100.  Every kernel sweeps through
+// `sweep_rays`: a triangle is loaded once as six 16-byte broadcasts for
+// the thread's R rays (22 scalar shared loads a pair would bind the sweep
+// to the SM's shared-memory load pipe, about one warp-wide load a clock),
+// and the division and the accept chain run only for pairs that a
+// division-free test cannot reject (may_accept); a pair then costs its 22
+// FMAs, the determinant and the test, about 40 instructions, and the
+// instruction issue bounds it.
 //
 // Rules shared with the JAX reference (ops/plucker.py, pallas/trace.py):
 //  * the accept chain is the five explicit comparisons below.  fminf/fmaxf
@@ -63,41 +63,6 @@ __device__ __forceinline__ RayVec state_ray(const float* s) {
           o0, o1, o2};
 }
 
-// Stage the PTT_ROWS non-zero operand rows of triangles [g0, g0 + width)
-// into sm[PTT_ROWS][width].  width divides tri_block and g0 is a multiple
-// of width, so the run lies inside one block.
-__device__ __forceinline__ void stage_ops(float* sm, const float* __restrict__ ops,
-                                          int ops_cols, int g0, int width, int tri_block) {
-  const int base = (g0 / tri_block) * 4 * tri_block + g0 % tri_block;
-  for (int i = threadIdx.x; i < PTT_ROWS * width; i += blockDim.x) {
-    const int r = i / width;
-    const int c = i - r * width;
-    const int q = r < 18 ? r / 6 : 3;
-    const int row = r < 18 ? r % 6 : r - 12;
-    sm[i] = __ldg(ops + (size_t)row * ops_cols + base + q * tri_block + c);
-  }
-}
-
-// Pluecker side value of edge quadrant q (0..2) of staged triangle c.
-__device__ __forceinline__ float side(const float* sm, int q, int c, int width, const RayVec& r) {
-  const float* e = sm + q * 6 * width + c;
-  float acc = r.d0 * e[0];
-  acc = fmaf(r.d1, e[width], acc);
-  acc = fmaf(r.d2, e[2 * width], acc);
-  acc = fmaf(r.m0, e[3 * width], acc);
-  acc = fmaf(r.m1, e[4 * width], acc);
-  return fmaf(r.m2, e[5 * width], acc);
-}
-
-// t * det of staged triangle c: orig . (-n) + (-1) * (-d).
-__device__ __forceinline__ float plane(const float* sm, int c, int width, const RayVec& r) {
-  const float* p = sm + 18 * width + c;
-  float acc = r.o0 * p[0];
-  acc = fmaf(r.o1, p[width], acc);
-  acc = fmaf(r.o2, p[2 * width], acc);
-  return fmaf(-1.0f, p[3 * width], acc);
-}
-
 // Epsilon-guarded Moeller-Trumbore accept (Renderer.cpp:188-201); returns
 // t if accepted, PTT_F_MAX otherwise.  Debug is the explicit-mask form of
 // PTAP_DEBUG=1 (pallas/megakernel.py:608-633): det == 0 is masked and the
@@ -115,22 +80,6 @@ __device__ __forceinline__ float accept_t(float s_ab, float s_bc, float s_ca, fl
   const bool ok = !parallel && (u >= PTT_NEG_EPS) && (v >= PTT_NEG_EPS) && (t >= PTT_NEG_EPS) &&
                   (u <= PTT_ONE_EPS) && (u + v <= PTT_ONE_EPS);
   return ok ? t : PTT_F_MAX;
-}
-
-// Sweep `width` staged triangles whose global indices start at g0,
-// keeping the lexicographic (t, index) best.
-template <bool Debug = false>
-__device__ __forceinline__ void sweep(const float* sm, int width, int g0, const RayVec& r,
-                                      float& best, int& best_idx) {
-  for (int c = 0; c < width; ++c) {
-    const float t = accept_t<Debug>(side(sm, 0, c, width, r), side(sm, 1, c, width, r),
-                                    side(sm, 2, c, width, r), plane(sm, c, width, r));
-    const int g = g0 + c;
-    if (t < best || (t == best && t < PTT_F_MAX && g < best_idx)) {
-      best = t;
-      best_idx = g;
-    }
-  }
 }
 
 // Whether accept_t can accept a pair, decided without its division: a
@@ -155,8 +104,9 @@ __device__ __forceinline__ bool may_accept(float s_ab, float s_bc, float s_ca, f
   return lo >= bound;
 }
 
-// A (ray, triangle) pair's side values and t * det: the fmaf chains of
-// side() and plane() in their row order, on a triangle-major row q.
+// A (ray, triangle) pair's side values and t * det: fmaf chains in row
+// order (the rounding of the plain versions' f32 matrix products), on a
+// triangle-major row q.
 struct PairSums {
   float ab, bc, ca, pl;
 };
@@ -187,12 +137,12 @@ __device__ __forceinline__ PairSums pair_sums(const float4 (&q)[6], const RayVec
   return {ab, bc, ca, pl};
 }
 
-// The same sweep for R rays at once over `width` triangles staged
+// Sweep R rays at once over `width` triangles staged
 // triangle-major (`width` x 6 float4): six 16-byte loads a triangle serve
 // the thread's R rays.  Only where some ray may be accepted (may_accept)
-// does the thread run accept_t and the lexicographic improve, operation by
-// operation as in `sweep`: each ray's (best, best_idx) is bit for bit the
-// one `sweep` gives, and the hot loop holds no division, whose
+// does the thread run accept_t and the lexicographic improve: each ray's
+// (best, best_idx) is bit for bit that of a one-ray sweep that runs the
+// chain on every pair, and the hot loop holds no division, whose
 // special-case branch would serialize the R rays.
 template <int R, bool Debug = false>
 __device__ __forceinline__ void sweep_rays(const float4* sm, int width, int g0, const RayVec (&r)[R],
@@ -244,8 +194,8 @@ __device__ __forceinline__ void stage_tri_async(float4* sm, const float* __restr
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// The Run-triangle runs of a worklist row in sweep order (kernels 1 and
-// 2): entry j's `unit / Run` runs in ascending order, entries until the
+// The Run-triangle runs of a worklist row in sweep order (kernels 1, 2
+// and 3): entry j's `unit / Run` runs in ascending order, entries until the
 // first -1 or the row's end, runs from the last real triangle on dropped.
 template <int Run>
 struct RunCursor {

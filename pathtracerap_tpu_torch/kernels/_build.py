@@ -49,12 +49,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_bounce.restype = i
     lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, i, p, i, i, p, p, i, p]
     lib.ptt_bounce_trace.restype = i
-    lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, i, p, p, p]
+    lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, p, p, p]
     lib.ptt_sample_fused.restype = i
     lib.ptt_sample_fused.argtypes = [p, p, p, i, i, i, p, i, p, i, p, p, i, i, i, i, i, p, p, p, i,
                                      p]
     lib.ptt_nearest_hit.restype = i
-    lib.ptt_nearest_hit.argtypes = [p, p, p, p, i, p, p, i, i, i, p, p, p, p]
+    lib.ptt_nearest_hit.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p, p, p, p, p]
     lib.ptt_prof_parts.restype = i
     lib.ptt_prof_parts.argtypes = [p, i, i, i, p, i, p, i, i, i, i, i, p, p]
     lib.ptt_prof_argmin.restype = i

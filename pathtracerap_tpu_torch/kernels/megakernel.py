@@ -58,10 +58,12 @@ SAMPLE_BATCH = 8  # samples per fused launch, parity camera
 FUSED_SLAB_TILES = 64  # fused facade slab, in 8192-ray RNG tiles
 GATE_BLOCKS = 8  # the fused sweep gates blocks on their AABB above this many
 FUSED_TILE = 256  # rays per thread block of kernel 4 (csrc/megakernel.cu kFusedTile)
-# Rays each thread of kernel 2 carries through the sweep (csrc/bounce.cu
-# kRays): one triangle's operands, loaded from shared memory once, serve
-# them all.  Kernel 4 sweeps one ray a thread.
+# Rays each thread of kernels 2 and 3 carries through the sweep
+# (csrc/bounce.cu and csrc/bounce_trace.cu kRays): one triangle's operands,
+# loaded from shared memory once, serve them all.  Kernel 4 sweeps one ray
+# a thread.
 BOUNCE_RAYS_PER_THREAD = 2
+BOUNCE_TRACE_RAYS_PER_THREAD = 2
 
 
 def use_sub_blocks(world: WorldTriangles) -> bool:
@@ -252,9 +254,11 @@ def bounce_trace(
     accepted triangle over its tile's worklist (exact-t ties to the lowest
     baked index).  Returns (t (N,) f32, F_MAX on a miss; column + 1 (N,)
     int32, 0 on a miss and for the rays of a tile with no live ray).  A
-    dead ray of a live tile is traced too; its result is unspecified.
-    Launches kernel 3 for CUDA tensors (counted in
-    ``bounce_trace.launches``), runs the plain version for CPU ones."""
+    dead ray of a live tile gets an unspecified result.  Launches kernel 3
+    for CUDA tensors (counted in ``bounce_trace.launches``; it stages the
+    world's ``ops_tri``, and ``ray_tile`` must be a multiple of
+    ``32 * BOUNCE_TRACE_RAYS_PER_THREAD``), runs the plain version for CPU
+    ones."""
     n = pack.shape[0]
     nt, lw = lists.shape
     if n != nt * ray_tile:
@@ -265,13 +269,14 @@ def bounce_trace(
         return bounce_trace_plain(pack, world, ray_tile)
     if pack.device.type != "cuda":
         raise ValueError(f"no kernel for device {pack.device}")
-    if not 32 <= ray_tile <= 1024 or ray_tile % 32:
-        raise ValueError(f"ray_tile must be a multiple of 32 in [32, 1024], got {ray_tile}")
+    step = 32 * BOUNCE_TRACE_RAYS_PER_THREAD  # whole warps of threads that own R rays each
+    if not step <= ray_tile <= 1024 or ray_tile % step:
+        raise ValueError(f"ray_tile must be a multiple of {step} in [{step}, 1024], got {ray_tile}")
     dev = pack.device
-    ops = world.fused_ops
+    ops, n_tris = sweep_operands(world)
     _check(pack, "pack", torch.float32, (n, STATE_COLS), dev)
     _check(lists, "lists", torch.int32, (nt, lw), dev)
-    _check(ops, "fused_ops", torch.float32, (16, ops.shape[1]), dev)
+    _check(ops, "ops_tri", torch.float32, (ops.shape[0], 24), dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     col1 = torch.empty(n, dtype=torch.int32, device=dev)
     err = _build.library().ptt_bounce_trace(
@@ -282,8 +287,7 @@ def bounce_trace(
         ctypes.c_int(unit),
         ctypes.c_int(ray_tile),
         ctypes.c_void_p(ops.data_ptr()),
-        ctypes.c_int(ops.shape[1]),
-        ctypes.c_int(world.tri_block),
+        ctypes.c_int(n_tris),
         ctypes.c_void_p(t.data_ptr()),
         ctypes.c_void_p(col1.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),

@@ -13,7 +13,9 @@ above 313 blocks, and splits each tile's list into chunks of
 budget, or traced with ``cull=False``) is swept whole by kernel 5,
 ``csrc/nearest_hit.cu``, which replaces ``_nearest_hit_kernel``: every
 ray tile walks every real 128-triangle cluster in index order and skips
-the clusters no live ray's slab test can reach with a better t.
+the clusters no live ray's slab test (:func:`slab_reaches`) can reach with
+a better t, testing the union box of each ``CLUSTER_GROUP`` clusters
+(the world's ``group_aabb``) before its members.
 
 :func:`nearest_hit_fused` and :func:`nearest_hit` are the kernels'
 wrappers: on a CUDA tensor they launch the kernel (and count the launch),
@@ -32,7 +34,7 @@ import torch
 
 from .. import constants
 from ..ops.math import cross3, normalize
-from ..ops.plucker import hit_record
+from ..ops.plucker import CLUSTER_GROUP, dense_runs, hit_record
 from ..scene.types import WorldTriangles
 from ..utils.debug import resolve_debug
 from . import _build
@@ -50,13 +52,16 @@ PLAIN_CHUNK = 8192  # rays per chunk of the plain versions' products
 # PLAIN_ELEMS values.
 PLAIN_BLOCK_CHUNK = 64
 PLAIN_ELEMS = 1 << 24
-SWEEP_RUN = 128  # triangles kernels 1, 2 and 4 stage per shared-memory run
+SWEEP_RUN = 128  # triangles kernels 1 to 4 stage per shared-memory run
 # Kernel 1 (csrc/trace_list.cu kRays, kChunk): rays a thread sweeps, and
 # worklist entries a thread block sweeps; chosen on the card (PERF.md).
 TRACE_LIST_RAYS = 2
 TRACE_LIST_CHUNK = 1
 DENSE_TILE = 256  # rays per thread block of kernel 5
 DENSE_RUN = 128  # triangles per run of kernel 5 == the bake's cluster width
+# Kernel 5 (csrc/nearest_hit.cu kRays): rays a thread sweeps, chosen on the
+# card (PERF.md); the clusters a group box unites are CLUSTER_GROUP.
+DENSE_RAYS = 2
 DENSE_TRI_CHUNK = 8192  # triangles per chunk of kernel 5's plain version
 
 
@@ -228,12 +233,12 @@ def _check(x: torch.Tensor, name: str, dtype, shape, device):
 
 
 def sweep_operands(world: WorldTriangles):
-    """What kernels 1, 2 and 4 stage: ``(ops_tri, n_tris)``, the world's
+    """What kernels 1 to 4 stage: ``(ops_tri, n_tris)``, the world's
     (T, 24) triangle-major pack, checked, and the count of real
     triangles the sweep stops at (padding is never accepted)."""
     ops = world.ops_tri
     if ops is None:
-        raise ValueError("world.ops_tri is None: kernels 1, 2 and 4 stage the triangle-major "
+        raise ValueError("world.ops_tri is None: kernels 1 to 4 stage the triangle-major "
                          "pack that bake_world_triangles stores beside fused_ops")
     if ops.dtype != torch.float32 or ops.dim() != 2 or ops.shape[1] != 24:
         raise ValueError(f"ops_tri: expected float32 (T, 24), got {ops.dtype} {tuple(ops.shape)}")
@@ -317,13 +322,23 @@ def _cluster_margin(cluster_aabb: torch.Tensor) -> torch.Tensor:
     return EPS + 1e-5 * torch.where(a < F_MAX, a, 0.0).amax()
 
 
-def _dense_runs(t_tris: int, n_valid: int) -> int:
-    """The 128-triangle runs the dense sweep visits: those that hold real
-    triangles (``n_valid`` of them come first), or all when unknown."""
-    if t_tris % DENSE_RUN:
-        raise ValueError(f"{t_tris} triangles are not a multiple of {DENSE_RUN}")
-    runs = t_tris // DENSE_RUN
-    return min(runs, -(-n_valid // DENSE_RUN)) if n_valid else runs
+def slab_reaches(box: torch.Tensor, ro: torch.Tensor, d: torch.Tensor, margin, best):
+    """Kernel 5's gate in torch, operation by operation (``csrc/nearest_hit.cu``
+    ``slab_of`` and ``reaches``): whether each ray (origin ``ro`` (N, 3),
+    direction ``d`` (N, 3)) reaches each box ``box`` (6, M) ``[min; max]``
+    with a t that can beat its ``best`` (N,); (N, M) bool.  The cluster
+    boxes and the group boxes of :func:`..ops.plucker.cluster_group_aabb` both go
+    through it, with ``margin`` :func:`_cluster_margin` of the clusters."""
+    d = torch.where(d.abs() < 1e-12, torch.where(d < 0, -1e-12, 1e-12), d)
+    inv = 1.0 / d
+    tmin = tmax = None
+    for a in range(3):
+        lo = (box[a][None, :] - ro[:, a, None]) * inv[:, a, None]
+        hi = (box[3 + a][None, :] - ro[:, a, None]) * inv[:, a, None]
+        near, far = torch.fmin(lo, hi), torch.fmax(lo, hi)
+        tmin = near if a == 0 else torch.fmax(tmin, near)
+        tmax = far if a == 0 else torch.fmin(tmax, far)
+    return (tmax >= -margin) & (tmin <= tmax + margin) & (tmin - margin <= best[:, None])
 
 
 def nearest_hit_plain(w, wo, edge_mat, plane_mat, n_valid: int = 0):
@@ -335,7 +350,7 @@ def nearest_hit_plain(w, wo, edge_mat, plane_mat, n_valid: int = 0):
     so exact ties go to the lowest index.  Returns (t (N,) f32, idx (N,)
     int32, -1 on a miss)."""
     nearest_hit_plain.calls += 1
-    n_tris = _dense_runs(plane_mat.shape[1], n_valid) * DENSE_RUN
+    n_tris = dense_runs(plane_mat.shape[1], n_valid) * DENSE_RUN
     ts, idxs = [], []
     for s0 in range(0, w.shape[0], PLAIN_CHUNK):
         wr, wor = w[s0:s0 + PLAIN_CHUNK], wo[s0:s0 + PLAIN_CHUNK]
@@ -375,6 +390,9 @@ def nearest_hit(
     cull: bool = True,
     n_valid: int = 0,
     swept: torch.Tensor = None,
+    *,
+    group_aabb: torch.Tensor,  # (8, ceil(runs / CLUSTER_GROUP))
+    tests: torch.Tensor = None,
 ):
     """Dense nearest hit (JAX ``pallas/trace.py::nearest_hit``): returns
     (t (N,), idx (N,) int32, -1 on a miss), N a multiple of ``DENSE_TILE``.
@@ -382,8 +400,13 @@ def nearest_hit(
     with a better t; ``n_valid`` cuts the sweep to the runs that hold real
     triangles.  A dead ray's result is unspecified.  Launches kernel 5 for
     CUDA tensors (counted in ``nearest_hit.launches``), runs the plain
-    version for CPU ones.  ``swept``, an int32 (N / DENSE_TILE,) CUDA
-    tensor, receives each thread block's count of swept runs."""
+    version for CPU ones.  ``group_aabb`` is the world's union boxes of the
+    runs' clusters (the bake's, :func:`..ops.plucker.cluster_group_aabb`).
+    ``swept``, an int32 (N / DENSE_TILE,) CUDA tensor,
+    receives each thread block's count of swept runs; ``tests``, an int32
+    (N / DENSE_TILE, 2) one, its counts of group and cluster box tests
+    (each made by every live ray of the tile); a tile with no live ray
+    counts none."""
     n = w.shape[0]
     t_tris = plane_mat.shape[1]
     if n % DENSE_TILE:
@@ -393,15 +416,18 @@ def nearest_hit(
     if w.device.type != "cuda":
         raise ValueError(f"no kernel for device {w.device}")
     dev = w.device
-    runs = _dense_runs(t_tris, n_valid)
+    runs = dense_runs(t_tris, n_valid)
     nt = n // DENSE_TILE
     _check(w, "w", torch.float32, (n, 8), dev)
     _check(wo, "wo", torch.float32, (n, 8), dev)
     _check(edge_mat, "edge_mat", torch.float32, (3, 8, t_tris), dev)
     _check(plane_mat, "plane_mat", torch.float32, (8, t_tris), dev)
     _check(cluster_aabb, "cluster_aabb", torch.float32, (8, t_tris // DENSE_RUN), dev)
+    _check(group_aabb, "group_aabb", torch.float32, (8, -(-runs // CLUSTER_GROUP)), dev)
     if swept is not None:
         _check(swept, "swept", torch.int32, (nt,), dev)
+    if tests is not None:
+        _check(tests, "tests", torch.int32, (nt, 2), dev)
     margin = _cluster_margin(cluster_aabb).reshape(1)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
@@ -412,6 +438,7 @@ def nearest_hit(
         ctypes.c_void_p(plane_mat.data_ptr()),
         ctypes.c_int(t_tris),
         ctypes.c_void_p(cluster_aabb.data_ptr()),
+        ctypes.c_void_p(group_aabb.data_ptr()),
         ctypes.c_void_p(margin.data_ptr()),
         ctypes.c_int(runs),
         ctypes.c_int(nt),
@@ -419,6 +446,7 @@ def nearest_hit(
         ctypes.c_void_p(t.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
         ctypes.c_void_p(swept.data_ptr() if swept is not None else None),
+        ctypes.c_void_p(tests.data_ptr() if tests is not None else None),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_nearest_hit")
@@ -507,7 +535,7 @@ def trace_pallas(world: WorldTriangles, ro, rd, alive=None, cull: bool = True,
     else:
         w, wo = dense_inputs(ro, rd, alive)
         t, idx = nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
-                             cull=cull, n_valid=world.n_valid)
+                             cull=cull, n_valid=world.n_valid, group_aabb=world.group_aabb)
     idx = torch.clamp(idx[:n], min=0)
     rec = hit_record(world, t[:n], idx.long())
     return (rec, idx) if return_idx else rec

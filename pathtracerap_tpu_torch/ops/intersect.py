@@ -34,7 +34,9 @@ class HitRecord:
         return self.t < F_MAX
 
     @classmethod
-    def miss(cls, n: int, device=None) -> "HitRecord":
+    def miss(cls, n: int, device="cuda") -> "HitRecord":
+        """``n`` misses (t = FLOAT_MAX, zero attributes) on ``device``: the
+        card unless the caller asks for another (``"cpu"``)."""
         return cls(
             t=torch.full((n,), F_MAX, dtype=torch.float32, device=device),
             normal=torch.zeros((n, 3), dtype=torch.float32, device=device),

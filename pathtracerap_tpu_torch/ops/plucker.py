@@ -28,6 +28,9 @@ SUB_BLOCK = 128  # cluster / sub-block width of the bake
 # The fused pack costs 320 bytes a triangle with its attribute rows; JAX
 # drops it above this many world triangles, and so does the port.
 PACK_MAX_TRIANGLES = 2_097_152
+# Clusters a group box of kernel 5's two-level gate unites (G; chosen on
+# the card, PERF.md; csrc/nearest_hit.cu kGroup).
+CLUSTER_GROUP = 64
 
 
 def _round_up(x: int, m: int) -> int:
@@ -72,7 +75,7 @@ def keeps_pack(n_world_triangles: int) -> bool:
 
 
 def tri_major_ops(fused_ops: torch.Tensor, tri_block: int) -> torch.Tensor:
-    """The (T, 24) triangle-major operand pack of kernels 2 and 4: for
+    """The (T, 24) triangle-major operand pack of kernels 1 to 4: for
     triangle g the 22 non-zero entries of its four ``fused_ops`` columns
     in the kernels' staging order (s_ab rows 0-5, s_bc rows 0-5, s_ca rows
     0-5, plane rows 6-9), then two zeros.  96 bytes a triangle, so a run
@@ -88,11 +91,52 @@ def tri_major_ops(fused_ops: torch.Tensor, tri_block: int) -> torch.Tensor:
     ).contiguous()
 
 
+def dense_runs(t_tris: int, n_valid: int) -> int:
+    """The 128-triangle runs (clusters) kernel 5 visits: those that hold real
+    triangles (``n_valid`` of them come first), or all when unknown (0)."""
+    if t_tris % SUB_BLOCK:
+        raise ValueError(f"{t_tris} triangles are not a multiple of {SUB_BLOCK}")
+    runs = t_tris // SUB_BLOCK
+    return min(runs, -(-n_valid // SUB_BLOCK)) if n_valid else runs
+
+
+def cluster_group_aabb(cluster_aabb: torch.Tensor, n_valid: int) -> torch.Tensor:
+    """The union boxes of kernel 5's two-level gate, (8, ceil(runs /
+    CLUSTER_GROUP)) ``[min; max; 0, 0]``, ``runs`` the clusters that hold the
+    world's ``n_valid`` real triangles (:func:`dense_runs`): per group of
+    ``CLUSTER_GROUP`` consecutive clusters among them, the members' smallest
+    min and largest max, no slack added; the last group holds the clusters
+    left.
+
+    The gate reaches a group box by the clusters' slab test
+    (:func:`..kernels.trace.slab_reaches`).  Where a member's box is
+    inverted or NaN (a cluster of padding only: min = +F_MAX, max =
+    -F_MAX, which every ray reaches), the group's box is infinite, which
+    every ray with a finite origin reaches too.  Otherwise the group box
+    contains each member's, and the slab test's rounding is monotone, so a
+    ray that reaches a member reaches its group at any t at least as
+    large: the gate that tests a group before its members skips only
+    clusters the per-cluster gate skips.  Computed once per world, by the
+    bake, from a detached ``cluster_aabb``."""
+    g = CLUSTER_GROUP
+    runs = dense_runs(cluster_aabb.shape[1] * SUB_BLOCK, n_valid)
+    box = cluster_aabb[:6, :runs].detach()
+    pad = (-runs) % g
+    # the cut last group is padded with entries that leave min and max as they are
+    lo = torch.cat([box[0:3], box.new_full((3, pad), F_MAX)], dim=1).reshape(3, -1, g)
+    hi = torch.cat([box[3:6], box.new_full((3, pad), -F_MAX)], dim=1).reshape(3, -1, g)
+    bad = (~(box[0:3] <= box[3:6])).any(dim=0)  # (runs,) inverted or NaN member boxes
+    inverted = torch.cat([bad, bad.new_zeros(pad)]).reshape(-1, g).any(dim=1)  # (groups,)
+    lo_g = torch.where(inverted, -float("inf"), lo.amin(dim=2))
+    hi_g = torch.where(inverted, float("inf"), hi.amax(dim=2))
+    return torch.cat([lo_g, hi_g, box.new_zeros((2, lo_g.shape[1]))], dim=0).contiguous()
+
+
 def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) -> WorldTriangles:
     """Bake all model instances into a world-space triangle soup, with the
-    dense tracer's operands (``edge_mat``, ``plane_mat``, ``cluster_aabb``)
-    and, unless ``fused_tile`` is None or the world is above the pack
-    budget (:func:`keeps_pack`), the fused (16, 4*T) operand pack, its
+    dense tracer's operands (``edge_mat``, ``plane_mat``, ``cluster_aabb``,
+    ``group_aabb``) and, unless ``fused_tile`` is None or the world is
+    above the pack budget (:func:`keeps_pack`), the fused (16, 4*T) operand pack, its
     triangle-major copy ``ops_tri`` (:func:`tri_major_ops`), block /
     sub-block AABBs and attribute rows of the worklist kernels (see
     :class:`WorldTriangles`).  Without a pack the triangle axis is padded
@@ -217,6 +261,7 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
     cl_max = cl_max + pad_sp
     zeros2 = torch.zeros((cl_min.shape[0], 2), device=dev)
     cluster_aabb = torch.cat([cl_min.T, cl_max.T, zeros2.T], dim=0)  # (8, T/128)
+    group_aabb = cluster_group_aabb(cluster_aabb, n_world_valid)
 
     fused_ops = ops_tri = block_aabb = attr_rows = sub_aabb = None
     if fused_tile is not None:
@@ -281,6 +326,7 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
         plane_n=n_p,
         plane_d=d_p,
         cluster_aabb=cluster_aabb,
+        group_aabb=group_aabb,
         shade_normal=padt(shade_n),
         mat_type=padt(mat_type).to(torch.int32),
         mat_color=padt(mat_color),

@@ -169,7 +169,9 @@ class WorldTriangles:
     edge columns ``[p x q, q - p, 0, 0]`` and ``[n, d_plane, 0...]``, so a
     ray's ``[dir, orig x dir, 0, 0]`` gives the side values and its
     ``[orig, -1, alive, 0...]`` gives ``orig . n - d_plane``;
-    ``cluster_aabb`` gates them per 128-triangle cluster.
+    ``cluster_aabb`` gates them per 128-triangle cluster, after
+    ``group_aabb`` has gated the clusters' groups
+    (:func:`pathtracerap_tpu_torch.ops.plucker.cluster_group_aabb`).
 
     ``fused_ops`` (16, 4*T) is the operand pack the traversal kernels
     read.  Per block of ``tri_block`` triangles its columns are grouped
@@ -179,8 +181,8 @@ class WorldTriangles:
     edge's Pluecker side value, and with the plane column (rows 6-9
     ``[-n, -d_plane]``) gives t * det.  ``ops_tri`` (T, 24) holds the same
     non-zero entries triangle-major, detached
-    (:func:`pathtracerap_tpu_torch.ops.plucker.tri_major_ops`): what kernels 2
-    and 4 stage.  ``attr_rows`` (16, T) holds the
+    (:func:`pathtracerap_tpu_torch.ops.plucker.tri_major_ops`): what kernels 1
+    to 4 stage.  ``attr_rows`` (16, T) holds the
     per-triangle shading attributes ``[shade_n(0:3), mat_type(3),
     rgb(4:7), geom_n(7:10), idx+1(10), refractive_index(11), 0(12:16)]``.
 
@@ -206,6 +208,7 @@ class WorldTriangles:
     mat_table: torch.Tensor  # (M, 3) f32 per-model color
     edge_mat: Optional[torch.Tensor] = None  # (3, 8, T) f32 edge_pluecker + 2 zero rows
     plane_mat: Optional[torch.Tensor] = None  # (8, T) f32 [n; d_plane; 0...]
+    group_aabb: Optional[torch.Tensor] = None  # (8, groups) f32 union boxes of cluster_aabb
     fused_ops: Optional[torch.Tensor] = None  # (16, 4*T) f32
     ops_tri: Optional[torch.Tensor] = None  # (T, 24) f32, triangle-major fused_ops
     block_aabb: Optional[torch.Tensor] = None  # (nb_real, 8) f32

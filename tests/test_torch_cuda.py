@@ -28,6 +28,9 @@ from pathtracerap_tpu_torch.render.camera import generate_rays
 
 pytestmark = pytest.mark.cuda
 
+# a camera inside the room of the suite's scenes, facing the sphere
+INSIDE = dict(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0), plane_y=(-48.0, 48.0),
+              plane_z=120.0)
 GOLDEN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "assets", "golden", "reference_scene.bmp",
@@ -116,24 +119,29 @@ def test_bounce_kernel_block_mode_matches_plain(dev, world, wavefront):
     _check_bounce(world, pack, u, lists, world.tri_block, ray_tile)
 
 
-def test_bounce_trace_kernel_matches_plain(dev, world, wavefront):
-    """Kernel 3 on the sub-block worklists of the same sorted wavefront:
-    the winner's index on live rays, its t, and a miss for dead tiles."""
-    pack, _ = wavefront
-    ray_tile = TM.binned_ray_tile(world)
-    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+def _check_bounce_trace(world, pack, lists, unit, ray_tile):
+    """Kernel 3 against its plain version: t bits and index + 1 equal on
+    every live ray, a miss (F_MAX, 0) on every ray of a tile with no live
+    ray."""
     before = TM.bounce_trace.launches
     t, col1 = TM.bounce_trace(pack, lists, unit, world, ray_tile)
     torch.cuda.synchronize()
     assert TM.bounce_trace.launches == before + 1
     tp, cp = TM.bounce_trace_plain(pack, world, ray_tile)
     live = pack[:, 9] > 0
-    agree = (col1 == cp) & live
-    assert (agree.sum() / live.sum()).item() >= 0.9999
-    both = agree & (cp > 0)
-    assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both].max().item() <= 1e-5
+    assert _bits_equal((t, col1), (tp, cp), live)
     dead_tile = ~live.reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
     assert (col1[dead_tile] == 0).all() and (t[dead_tile] == 9999999.0).all()
+
+
+def test_bounce_trace_kernel_matches_plain(dev, world, wavefront):
+    """Kernel 3 on the sub-block worklists of the same sorted wavefront:
+    the winner's index and t bit for bit on live rays, and a miss for dead
+    tiles."""
+    pack, _ = wavefront
+    ray_tile = TM.binned_ray_tile(world)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    _check_bounce_trace(world, pack, lists, unit, ray_tile)
 
 
 def test_train_step_on_gpu_matches_cpu(dev):
@@ -304,7 +312,7 @@ def _check_dense(world, ro, rd, alive=None, cull=True):
     w, wo = TT.dense_inputs(ro, rd, alive)
     args = (w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb)
     before = TT.nearest_hit.launches
-    t, idx = TT.nearest_hit(*args, cull=cull, n_valid=world.n_valid)
+    t, idx = TT.nearest_hit(*args, cull=cull, n_valid=world.n_valid, group_aabb=world.group_aabb)
     torch.cuda.synchronize()
     assert TT.nearest_hit.launches == before + 1
     tp, ip = TT.nearest_hit_plain(w, wo, world.edge_mat, world.plane_mat, world.n_valid)
@@ -329,6 +337,77 @@ def test_dense_kernel_matches_plain(dev):
     ro = torch.tensor(g.uniform(-200, 200, (8192, 3)), dtype=torch.float32, device=dev)
     rd = torch.tensor(g.normal(size=(8192, 3)), dtype=torch.float32, device=dev)
     _check_dense(world, ro, rd, alive=torch.arange(8192, device=dev) % 3 != 0)
+
+
+def test_dense_kernel_writes_misses_on_a_dead_wavefront(dev):
+    """Kernel 5 on a wavefront with no live ray (the room camera's bounce
+    2): every tile leaves at once, culled or not, with (F_MAX, -1) on
+    every ray and no run swept or box tested."""
+    world = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
+    ro, rd = generate_rays(CameraConfig(), (64, 32), device=dev)
+    w, wo = TT.dense_inputs(ro, rd, torch.zeros(ro.shape[0], dtype=torch.bool, device=dev))
+    nt = w.shape[0] // TT.DENSE_TILE
+    for cull in (True, False):
+        swept = torch.full((nt,), -1, dtype=torch.int32, device=dev)
+        tests = torch.full((nt, 2), -1, dtype=torch.int32, device=dev)
+        t, idx = TT.nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
+                                cull=cull, n_valid=world.n_valid, swept=swept,
+                                group_aabb=world.group_aabb, tests=tests)
+        torch.cuda.synchronize()
+        assert (t == 9999999.0).all() and (idx == -1).all()
+        assert (swept == 0).all() and (tests == 0).all()
+
+
+def _dense_world_and_rays(dev, camera, res, alive=None):
+    from pathtracerap_tpu_torch.bench_suite import build_highpoly_scene
+
+    world = bake_world_triangles(build_highpoly_scene(subdiv=224, use_asset=False).to_device(dev),
+                                 fused_tile=None)
+    ro, rd = generate_rays(camera, res, device=dev)
+    return world, TT.dense_inputs(ro, rd, alive)
+
+
+def test_dense_kernel_unculled_equals_plain(dev):
+    """Kernel 5 without culling against its plain version: the index on
+    every live ray of the reference scene (primaries and bounce-like rays,
+    a third dead) and of a 200k-triangle sphere seen from inside the room,
+    t within rtol 1e-5."""
+    world = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
+    ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
+    cases = [(world, TT.dense_inputs(ro, rd))]
+    g = np.random.default_rng(0)
+    ro = torch.tensor(g.uniform(-200, 200, (8192, 3)), dtype=torch.float32, device=dev)
+    rd = torch.tensor(g.normal(size=(8192, 3)), dtype=torch.float32, device=dev)
+    cases.append((world, TT.dense_inputs(ro, rd, torch.arange(8192, device=dev) % 3 != 0)))
+    cases.append(_dense_world_and_rays(dev, CameraConfig(**INSIDE), (64, 32)))
+    for wld, (w, wo) in cases:
+        t, idx = TT.nearest_hit(w, wo, wld.edge_mat, wld.plane_mat, wld.cluster_aabb, cull=False,
+                                n_valid=wld.n_valid, group_aabb=wld.group_aabb)
+        tp, ip = TT.nearest_hit_plain(w, wo, wld.edge_mat, wld.plane_mat, wld.n_valid)
+        live = wo[:, 4] > 0
+        assert torch.equal(idx[live], ip[live])
+        both = live & (ip >= 0)
+        assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both].max().item() <= 1e-5
+
+
+def test_dense_kernel_culled_inside_differs_only_on_phantoms(dev):
+    """Kernel 5 with its gate from inside the room, where the rays meet a
+    200k-triangle sphere: it differs from its plain version only on rays
+    whose plain winner lies in a cluster box the ray's slab test does not
+    reach (a phantom accept of a sliver triangle far from the ray)."""
+    world, (w, wo) = _dense_world_and_rays(dev, CameraConfig(**INSIDE), (128, 64))
+    t, idx = TT.nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
+                            n_valid=world.n_valid, group_aabb=world.group_aabb)
+    tp, ip = TT.nearest_hit_plain(w, wo, world.edge_mat, world.plane_mat, world.n_valid)
+    live = wo[:, 4] > 0
+    assert (ip[live] >= 0).float().mean().item() > 0.5
+    differ = torch.nonzero(live & (idx != ip)).flatten()
+    box = world.cluster_aabb[:6, ip[differ].long() // TT.DENSE_RUN]  # (6, D)
+    reach = TT.slab_reaches(box, wo[differ, 0:3], w[differ, 0:3], TT._cluster_margin(world.cluster_aabb),
+                            torch.full((differ.numel(),), float("inf"), device=dev))
+    assert not reach.diagonal().any()
+    same = live & (idx == ip) & (ip >= 0)
+    assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[same].max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1e3])
@@ -559,6 +638,19 @@ def test_bounce_kernel_on_live_patterns(dev, world, wavefront, ray_tile):
     _check_bounce(world, pack, u, lists, unit, ray_tile, parities=(True,))
 
 
+@pytest.mark.parametrize("ray_tile", [256, 512])
+def test_bounce_trace_kernel_on_live_patterns(dev, world, wavefront, ray_tile):
+    """Kernel 3 with tiles of no, one and every live ray and live counts
+    either side of multiples of R and of a warp: bit-equal to its plain
+    version on live rays, a miss for the tile with none."""
+    pack, _ = wavefront
+    pack = pack.clone()
+    pack[:, 9] = torch.where(_kill_outside_pattern(pack[:, 9] > 0, ray_tile), pack[:, 9], 0.0)
+    assert (pack[:, 9].reshape(-1, ray_tile) > 0).all(dim=1).any()  # tiles of every ray live
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    _check_bounce_trace(world, pack, lists, unit, ray_tile)
+
+
 def test_fused_kernel_on_live_patterns(dev):
     """Kernel 4 on the Cornell box with primary rows whose misses leave
     tile i with LIVE_PATTERN[i] live rays after bounce 0: 8-sample batches
@@ -586,6 +678,12 @@ def test_kernels_raise_without_ops_tri(dev, world, wavefront):
     lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
     with pytest.raises(ValueError, match="ops_tri is None"):
         TM.bounce(pack, u, lists, unit, bare, ray_tile, True)
+    with pytest.raises(ValueError, match="ops_tri is None"):
+        TM.bounce_trace(pack, lists, unit, bare, ray_tile)
+    r = TM.BOUNCE_TRACE_RAYS_PER_THREAD
+    for bad in [48] + ([32 * (r + 1)] if r > 1 else []):  # not a multiple of 32 * R
+        with pytest.raises(ValueError, match="ray_tile must be a multiple"):
+            TM.bounce_trace(pack[:2 * bad], lists[:2], unit, world, bad)
     w16, prim, uu = _fused_case(world, dev, CameraConfig(), (32, 16), True)
     with pytest.raises(ValueError, match="ops_tri is None"):
         TM.sample_fused(w16, prim, uu[0], bare, 5, False, False)

@@ -68,7 +68,7 @@ def test_nearest_hit_plain_matches_jax(name, cull):
     w, wo = TT.dense_inputs(torch.from_numpy(ro), torch.from_numpy(rd), alive)
     before = TT.nearest_hit_plain.calls
     t, idx = TT.nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
-                            cull=cull, n_valid=world.n_valid)
+                            cull=cull, n_valid=world.n_valid, group_aabb=world.group_aabb)
     assert TT.nearest_hit_plain.calls == before + 1
     t_j, idx_j = JT.nearest_hit(jnp.asarray(w.numpy()), jnp.asarray(wo.numpy()), jw.edge_mat,
                                 jw.plane_mat, jw.cluster_aabb, cull=cull, n_valid=jw.n_valid)
@@ -172,6 +172,7 @@ def test_nearest_hit_wrapper_checks_devices():
     ops = (world.edge_mat, world.plane_mat, world.cluster_aabb)
     with pytest.raises(ValueError, match="no kernel"):
         TT.nearest_hit(torch.zeros((256, 8), device="meta"), torch.zeros((256, 8), device="meta"),
-                       *(x.to("meta") for x in ops))
+                       *(x.to("meta") for x in ops), group_aabb=world.group_aabb.to("meta"))
     with pytest.raises(ValueError, match="tiles"):
-        TT.nearest_hit(torch.zeros((100, 8)), torch.zeros((100, 8)), *ops)
+        TT.nearest_hit(torch.zeros((100, 8)), torch.zeros((100, 8)), *ops,
+                       group_aabb=world.group_aabb)

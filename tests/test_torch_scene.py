@@ -11,7 +11,7 @@ from pathtracerap_tpu.ops.plucker import bake_world_triangles as jax_bake
 from pathtracerap_tpu.scene.build import build_cornell_box_scene
 from pathtracerap_tpu.scene.build import build_reference_scene as jax_reference_scene
 from pathtracerap_tpu_torch import convert
-from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles, tri_major_ops
+from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles, cluster_group_aabb, tri_major_ops
 from pathtracerap_tpu_torch.scene import build_reference_scene
 from pathtracerap_tpu_torch.scene.types import SceneDevice, WorldTriangles
 
@@ -116,6 +116,9 @@ def test_convert_round_trip(worlds, hosts):
         v = getattr(w, f.name)
         if f.name == "ops_tri":  # the port's own triangle-major copy of fused_ops
             np.testing.assert_array_equal(v.numpy(), tri_major_ops(w.fused_ops, w.tri_block).numpy())
+            continue
+        if f.name == "group_aabb":  # the port's own union boxes of cluster_aabb (kernel 5's gate)
+            np.testing.assert_array_equal(v.numpy(), cluster_group_aabb(w.cluster_aabb, w.n_valid).numpy())
             continue
         ref = getattr(jw, f.name)
         if isinstance(v, torch.Tensor):

@@ -1,13 +1,17 @@
-"""The operands and the sweep contract of kernels 2 and 4, on the CPU.
+"""The operands and the sweep contract of the traversal kernels, on the CPU.
 
-Kernels 2 and 4 (``csrc/bounce.cu``, ``csrc/megakernel.cu``) stage the
-bake's triangle-major pack ``ops_tri`` and stop their sweep at the last real
-triangle.  These tests hold ``ops_tri`` to the column formula of the fused
-pack (``csrc/common.cuh``) entry by entry and rebuild ``fused_ops`` from it
-bit for bit, show that the padding columns the sweep now skips never win a
-nearest hit (fast and debug accept chains, degenerate rays included), and
-check the wrappers' new validations.  The kernels themselves run on the
-card (``tests/test_torch_cuda.py``).  This file imports no JAX.
+Kernels 1 to 4 (``csrc/trace_list.cu``, ``bounce.cu``, ``bounce_trace.cu``,
+``megakernel.cu``) stage the bake's triangle-major pack ``ops_tri`` and stop
+their sweep at the last real triangle.  These tests hold ``ops_tri`` to the
+column formula of the fused pack (``csrc/common.cuh``) entry by entry and
+rebuild ``fused_ops`` from it bit for bit, show that the padding columns the
+sweep skips never win a nearest hit (fast and debug accept chains,
+degenerate rays included), and check the wrappers' validations.  Kernel 5
+(``csrc/nearest_hit.cu``) writes its runs in ``ops_tri``'s order from the
+dense operands, and gates group boxes before cluster boxes: the staged
+rows are held to ``ops_tri`` and the group gate to the cluster gate.  The
+kernels themselves run on the card (``tests/test_torch_cuda.py``).  This
+file imports no JAX.
 """
 
 import numpy as np
@@ -19,7 +23,10 @@ from pathtracerap_tpu_torch.kernels import _build
 from pathtracerap_tpu_torch.kernels import megakernel as TM
 from pathtracerap_tpu_torch.kernels import trace as TT
 from pathtracerap_tpu_torch.ops.math import normalize, normalize_rsqrt
-from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles, tri_major_ops
+from pathtracerap_tpu_torch.ops.intersect import HitRecord
+from pathtracerap_tpu_torch.ops.plucker import (
+    CLUSTER_GROUP, SUB_BLOCK, bake_world_triangles, cluster_group_aabb, dense_runs, tri_major_ops,
+)
 from pathtracerap_tpu_torch.render.camera import generate_rays
 from pathtracerap_tpu_torch.config import CameraConfig
 from pathtracerap_tpu_torch.scene.build import SceneBuilder, make_box_mesh, make_sphere_mesh
@@ -360,6 +367,12 @@ def test_merge_key_orders_hits():
     ("bounce.cu", "kSweepRun", TM.SWEEP_RUN),
     ("megakernel.cu", "kSweepRun", TM.SWEEP_RUN),
     ("megakernel.cu", "kFusedTile", TM.FUSED_TILE),
+    ("bounce_trace.cu", "kRays", TM.BOUNCE_TRACE_RAYS_PER_THREAD),
+    ("bounce_trace.cu", "kSweepRun", TM.SWEEP_RUN),
+    ("nearest_hit.cu", "kRays", TT.DENSE_RAYS),
+    ("nearest_hit.cu", "kGroup", CLUSTER_GROUP),
+    ("nearest_hit.cu", "kTile", TT.DENSE_TILE),
+    ("nearest_hit.cu", "kRun", TT.DENSE_RUN),
 ])
 def test_wrapper_constants_match_kernel_sources(source, name, value):
     """The wrappers size launches and validate inputs with copies of the
@@ -473,3 +486,157 @@ def test_may_accept_never_rejects_an_accepted_pair(case):
     assert not (acc & ~_may_accept(ab, bc, ca, num)).any()
     if case == "random":  # and the test rejects most of what the chain rejects
         assert (~_may_accept(ab, bc, ca, num) & ~acc).sum() > 0.5 * (~acc).sum()
+
+
+# --------------------------------------------------------------------------
+# kernel 5: the staged operands and the two-level gate
+# --------------------------------------------------------------------------
+
+
+def _dense_stage(edge_mat, plane_mat):
+    """The (T, 24) rows kernel 5 writes into shared memory (csrc/nearest_hit.cu
+    stage_dense, and the pads it zeroes): row r < 18 is edge_mat[r / 6, r % 6],
+    rows 18-21 the negated plane_mat rows 0-3, then two zeros."""
+    t = plane_mat.shape[1]
+    rows = [edge_mat[r // 6, r % 6] for r in range(18)] + [-plane_mat[r] for r in range(4)]
+    return torch.stack(rows + [torch.zeros(t), torch.zeros(t)], dim=1)
+
+
+@pytest.mark.parametrize("name", ["reference", "cornell", "gated_17_blocks"])
+def test_dense_stage_order_equals_ops_tri(worlds, name):
+    """On a world baked with a pack, kernel 5's staged rows are ops_tri's
+    bit for bit (the plane negated as the fused pack negates it, -0.0
+    included), pads zero; so sweep_rays computes kernel 5's sums with the
+    fmaf chains of kernels 1 to 4."""
+    world = _world(worlds, name)
+    staged = _dense_stage(world.edge_mat, world.plane_mat)
+    assert torch.equal(staged[:, :22].view(torch.int32), world.ops_tri[:, :22].view(torch.int32))
+    assert torch.equal(staged[:, 22:].view(torch.int32), torch.zeros_like(staged[:, 22:]).view(torch.int32))
+
+
+def test_bake_fills_group_boxes():
+    """The bake makes kernel 5's group boxes once, from the detached
+    cluster boxes of its real clusters: each contains its members."""
+    scene = build_reference_scene().to_device("cpu")
+    scene = scene.replace(vertex_pos=scene.vertex_pos.clone().requires_grad_(True))
+    world = bake_world_triangles(scene, fused_tile=None)
+    runs = dense_runs(world.plane_mat.shape[1], world.n_valid)
+    assert not world.group_aabb.requires_grad
+    assert torch.equal(world.group_aabb, cluster_group_aabb(world.cluster_aabb, world.n_valid))
+    assert world.group_aabb.shape == (8, -(-runs // CLUSTER_GROUP))
+    g = torch.arange(runs) // CLUSTER_GROUP
+    box = world.cluster_aabb.detach()[:, :runs]
+    assert (world.group_aabb[0:3, g] <= box[0:3]).all() and (world.group_aabb[3:6, g] >= box[3:6]).all()
+
+
+def _gate_case(scale: float, case: str, seed: int = 0):
+    """Seeded f32 cluster boxes (8, M) of a scene 10 units wide at ``scale``
+    (1e5: a million units, under FLOAT_MAX's 1e7) and the runs the gate
+    walks, and rays: ("cut") a last group cut at runs < M; ("padding")
+    every cluster walked (n_valid unknown), the last ones padding's
+    inverted boxes; ("mixed") inverted boxes among real ones."""
+    g = np.random.default_rng(seed)
+    m = CLUSTER_GROUP * 13
+    # consecutive clusters lie near each other, as the bake's Morton order
+    # places them, so that group boxes are tight
+    near = CLUSTER_GROUP // 2
+    c = (np.repeat(g.uniform(-5, 5, (m // near, 3)), near, axis=0) + g.uniform(-0.4, 0.4, (m, 3))) * scale
+    h = np.exp(g.uniform(np.log(0.0025), np.log(0.3), (m, 3))) * scale
+    lo, hi = (c - h).astype(np.float32), (c + h).astype(np.float32)
+    runs = m
+    if case == "cut":
+        runs = m - 5
+    elif case == "padding":
+        lo[-21:], hi[-21:] = 9999999.0, -9999999.0
+    elif case == "mixed":
+        k = g.choice(m, 9, replace=False)
+        lo[k], hi[k] = 9999999.0, -9999999.0
+    box = torch.from_numpy(np.concatenate([lo.T, hi.T, np.zeros((2, m), np.float32)]))
+    n = 384
+    ro = g.uniform(-7.5, 7.5, (n, 3)) * scale
+    # two rays in three aim at a cluster, the others go anywhere
+    d = np.where((np.arange(n) % 3 != 0)[:, None], c[g.integers(0, runs, n)] - ro,
+                 g.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)  # unit directions, as the kernel's rays
+    d[::7, 0] = 0.0  # axis-parallel rays and near-zero components hit the clamp
+    d[1::7, 1] = 1e-13
+    d[2::7, 2] = -3e-13
+    best = np.where(g.random(n) < 0.3, 9999999.0, g.uniform(0, 15, n) * scale)
+    best[::11] = 0.0
+    f32 = (lambda x: torch.from_numpy(np.asarray(x, np.float32)))
+    return box, runs, f32(ro), f32(d), f32(best)
+
+
+@pytest.mark.parametrize("case", ["cut", "padding", "mixed"])
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 1e3, 1e5])
+def test_group_gate_is_conservative(scale, case):
+    """Every (ray, cluster) the per-cluster slab test admits lies in a group
+    that the same test admits on the union box, at the same best t, in f32,
+    at scales from 1e-3 to 1e5, with inverted padding boxes and a last group
+    cut at runs; and the group test does reject (it is not trivially true)."""
+    box, runs, ro, d, best = _gate_case(scale, case)
+    margin = TT._cluster_margin(box)
+    groups = cluster_group_aabb(box, runs * SUB_BLOCK)
+    flat = TT.slab_reaches(box[:6, :runs], ro, d, margin, best)  # (N, runs)
+    grp = TT.slab_reaches(groups[:6], ro, d, margin, best)  # (N, groups)
+    member_group = torch.arange(runs) // CLUSTER_GROUP
+    assert flat.any() and not flat.all()
+    assert not (flat & ~grp[:, member_group]).any()
+    assert not grp.all()
+    # each group box is its members' union, or infinite where a member's box is inverted
+    for k in range(groups.shape[1]):
+        members = box[:6, k * CLUSTER_GROUP:min((k + 1) * CLUSTER_GROUP, runs)]
+        if (members[0:3] > members[3:6]).any():
+            assert torch.isinf(groups[:6, k]).all()
+        else:
+            assert torch.equal(groups[0:3, k], members[0:3].amin(dim=1))
+            assert torch.equal(groups[3:6, k], members[3:6].amax(dim=1))
+
+
+def _gate_walk(box, groups, runs, ro, d, margin, hit_t, two_level: bool):
+    """A tile's gate walk as kernel 5 makes it, the sweep of an admitted run
+    modelled by each ray's best falling to ``hit_t`` (N, runs) of that run:
+    (swept runs, group tests, cluster tests)."""
+    best = torch.full((ro.shape[0],), 9999999.0)
+    swept, n_group, n_cluster = [], 0, 0
+    for gi in range(-(-runs // CLUSTER_GROUP)):
+        members = range(gi * CLUSTER_GROUP, min((gi + 1) * CLUSTER_GROUP, runs))
+        if two_level:
+            n_group += 1
+            if not TT.slab_reaches(groups[:6, gi:gi + 1], ro, d, margin, best).any():
+                continue
+        for c in members:
+            n_cluster += 1
+            if TT.slab_reaches(box[:6, c:c + 1], ro, d, margin, best).any():
+                swept.append(c)
+                best = torch.minimum(best, hit_t[:, c])
+    return swept, n_group, n_cluster
+
+
+@pytest.mark.parametrize("case", ["cut", "padding", "mixed"])
+@pytest.mark.parametrize("scale", [1e-3, 1e5])
+def test_group_gate_sweeps_the_flat_gates_runs(scale, case):
+    """A tile of 64 rays walked with the two-level gate sweeps exactly the
+    runs the per-cluster gate sweeps, the bests falling as runs are swept,
+    and tests fewer boxes where groups are rejected."""
+    box, runs, ro, d, _ = _gate_case(scale, case, seed=3)
+    ro, d = ro[:64], d[:64]
+    g = np.random.default_rng(4)
+    hit_t = torch.from_numpy(np.where(g.random((64, runs)) < 0.2, g.uniform(0, 20, (64, runs)) * scale,
+                                      9999999.0).astype(np.float32))
+    margin = TT._cluster_margin(box)
+    groups = cluster_group_aabb(box, runs * SUB_BLOCK)
+    flat, _, flat_tests = _gate_walk(box, groups, runs, ro, d, margin, hit_t, False)
+    two, n_group, n_cluster = _gate_walk(box, groups, runs, ro, d, margin, hit_t, True)
+    assert two == flat and 0 < len(flat) < runs
+    assert flat_tests == runs and n_cluster <= runs
+
+
+def test_hit_record_miss_device():
+    """HitRecord.miss lands on the card unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(HitRecord.miss).parameters["device"].default == "cuda"
+    rec = HitRecord.miss(5, "cpu")
+    assert rec.t.device.type == "cpu" and (rec.t == 9999999.0).all() and not rec.hit.any()
+    assert rec.normal.shape == (5, 3) and rec.mat_type.dtype == torch.int32
