@@ -61,7 +61,13 @@ pairs of its bound, for kernel 5 its group width G, the box tests its
 two-level gate made beside the per-cluster gate's and the time of a dead
 wavefront; no kernel's time may read below its bound.  Kernel 1's phase
 lines also give each shape's list lengths, live (ray, triangle) pairs,
-the SM clock and the pairs per SM clock.
+the SM clock and the pairs per SM clock.  The parts kernel's lines (P1,
+P2) give each configuration's share of its bound, its bits against the
+plain version, registers, spills and shared memory, and the form of its
+product: its tensor-core instructions counted in the SASS (``cuobjdump
+-sass``: HGMMA for wgmma, HMMA for mma.sync); every bf16 configuration
+must hold some, ``mm_f32`` none, and none may spill.  The profiling
+scripts' phase gives each script's wall.
 
 Kernel times are device times (``cuda_ms``): CUDA events around many
 calls queued behind a spin on the stream, so that the host's enqueue
@@ -89,6 +95,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1645,6 +1652,52 @@ def debug_vs_fast(world, dev):
     return res
 
 
+_SASS = {}
+
+
+def sass_counts(opcode: str) -> dict:
+    """Per compiled kernel (its mangled name) of the loaded library, the
+    SASS instructions whose opcode starts with ``opcode`` (``cuobjdump
+    -sass``)."""
+    if opcode not in _SASS:
+        from pathtracerap_tpu_torch.kernels import _build
+
+        home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+        text = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass", _build.library()._name],
+                              capture_output=True, text=True, check=True).stdout
+        counts, name = {}, None
+        for line in text.splitlines():
+            if "Function : " in line:
+                name = line.split("Function : ", 1)[1].strip()
+                counts[name] = 0
+            elif name is not None and re.search(r"\*/\s+(@!?U?P\w+\s+)?" + opcode, line):
+                counts[name] += 1
+        _SASS[opcode] = counts
+    return _SASS[opcode]
+
+
+def parts_build(variant: str, k: int, unroll: bool) -> dict:
+    """The parts kernel's instantiation for a configuration: its registers,
+    spills and static shared memory (``ptxas -v``), the dynamic shared
+    memory its launch allows it (the staging ring, as the CUDA runtime
+    reports it for the loaded kernel) and its tensor-core instructions in
+    the SASS (HMMA: ``mma.sync``; HGMMA: ``wgmma``); ``mm_f32`` takes its
+    products on FFMAs."""
+    from pathtracerap_tpu_torch.kernels import _build
+    from pathtracerap_tpu_torch.kernels.prof import _CODES, parts_smem
+
+    f32 = variant == "mm_f32"
+    name = ("parts_f32_kernel" if f32
+            else f"parts_wgmma_kernelILi{k}ELi{_CODES[variant]}ELb{int(unroll)}E")
+    res = _build.kernel_resources()
+    (key,) = [m for m in res if name in m]
+    hmma, hgmma = sass_counts("HMMA").get(key, 0), sass_counts("HGMMA").get(key, 0)
+    form = ("wgmma m64n32k16 bf16" if hgmma else "mma.sync m16n8k16 bf16" if hmma
+            else "none (f32 FFMA)")
+    return {**res[key], "smem_dynamic": parts_smem(variant, k, unroll), "hmma": hmma,
+            "hgmma": hgmma, "tensor_core_form": form}
+
+
 def _prof_bound(variant: str, k: int, n: int, n_bytes: float) -> dict:
     """The least time for one launch of the parts kernel: the product (bf16
     passes on the tensor cores' peak, f32 on the f32 peak) plus the min over
@@ -1710,6 +1763,7 @@ def prof_kernels_vs_plain(dev):
         r["ms"] = cuda_ms(kern, host=r)
         r["plain_ms"] = cuda_ms(plain, 3, lead=False)
         r.update(bnd)
+        r["bound_share"] = r["bound_ms"] / r["ms"]
         r["matmul_alone_ms"] = library
         r["library_ms"] = None if library_call is None else cuda_ms(library_call)
         # the parts kernel's grid is one tile of PROF_R rays a thread block;
@@ -1730,6 +1784,7 @@ def prof_kernels_vs_plain(dev):
         compare(v, lambda v=v: P1.run_kernel(v, w, ops, attr),
                 lambda v=v: KP.parts_plain(v, w[:sl], ops, attr, PROF_R, PROF_TB, PROF_NB),
                 v.startswith("mm_"), _prof_bound(v, 16, PROF_N, n_bytes), lib)
+        res[v].update(parts_build(v, 16, False))
     del w, ops, attr
     for variant, k in P2.RUNS:
         if variant in ("empty", "mm_bf16"):  # the same launches as P4's and P1's
@@ -1740,7 +1795,13 @@ def prof_kernels_vs_plain(dev):
                 lambda: KP.parts_plain("mm_bf16", w[:sl], ops, None, PROF_R, PROF_TB, PROF_NB),
                 True, _prof_bound("mm_bf16", k, PROF_N, nb_),
                 _matmul_alone_ms(w, ops, torch.bfloat16, 1))
+        res[variant].update(parts_build("mm_bf16", *KP.P2_VARIANTS[variant]))
         del w, ops
+    for name, r in res.items():
+        check(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{name}: no spills")
+        check((r["hmma"] + r["hgmma"] > 0) == (name != "mm_f32"),
+              f"{name}: HMMA or HGMMA in the bf16 configurations, none in mm_f32 "
+              f"({r['hmma']}, {r['hgmma']})")
     w, ops = P4.empty_inputs(dev)
     for with_ops in (True, False):
         name = "empty_with_ops" if with_ops else "empty"
@@ -1943,7 +2004,7 @@ def prof_scripts(dev):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             out = mod.main()
-        res[name] = {"seconds": time.perf_counter() - t0, "lines": buf.getvalue().splitlines(),
+        res[name] = {"wall_s": time.perf_counter() - t0, "lines": buf.getvalue().splitlines(),
                      "result": out}
     res["launches"] = {
         "parts": {f"{v}/K={k}{'/unrolled' if u else ''}": c
@@ -2108,15 +2169,19 @@ def main() -> int:
     from pathtracerap_tpu_torch.kernels.prof import P1_VARIANTS, P2_VARIANTS
 
     parts, empties = ps["launches"]["parts"], ps["launches"]["empty"]
+    # the parts kernel's share of its bound, bits against the plain version,
+    # build, and its product's form (wgmma or mma.sync on the tensor cores, or FFMA)
+    parts_extra = ("bound_share", "bit_equal_share", "registers", "spill_stores", "spill_loads",
+                   "smem", "smem_dynamic", "tensor_core_form")
     for v in P1_VARIANTS:  # P2's mm_bf16 is the same launch as P1's
         kernels.append(entry(f"prof_parts:{v}", "prof_parts.cu", "scripts/prof_kernel_parts.py:35",
-                             parts.get(f"{v}/K=16", 0), pk[v]))
+                             parts.get(f"{v}/K=16", 0), pk[v], extra=parts_extra))
     for v, (k, unroll) in P2_VARIANTS.items():
         if v != "mm_bf16":
             kernels.append(entry(f"prof_parts:{v}", "prof_parts.cu",
                                  "scripts/prof_kernel_parts2.py:33",
                                  parts.get(f"mm_bf16/K={k}{'/unrolled' if unroll else ''}", 0),
-                                 pk[v]))
+                                 pk[v], extra=parts_extra))
     kernels.append(entry("prof_parts:empty", "prof_parts.cu",
                          "scripts/prof_kernel_parts2.py:33, scripts/prof_mega_sweep.py:30",
                          empties.get("without_ops", 0), pk["empty"]))

@@ -56,7 +56,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_nearest_hit.restype = i
     lib.ptt_nearest_hit.argtypes = [p, p, p, p, i, p, p, p, i, i, i, p, p, p, p, p]
     lib.ptt_prof_parts.restype = i
-    lib.ptt_prof_parts.argtypes = [p, i, i, i, p, i, p, i, i, i, i, i, p, p]
+    lib.ptt_prof_parts.argtypes = [p, i, i, i, p, i, p, i, p, i, i, i, i, p, p]
+    lib.ptt_prof_parts_smem.restype = i
+    lib.ptt_prof_parts_smem.argtypes = [i, i, i, p]
     lib.ptt_prof_argmin.restype = i
     lib.ptt_prof_argmin.argtypes = [p, i, i, p, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p

@@ -3,7 +3,8 @@
 * :func:`parts` launches ``csrc/prof_parts.cu``'s parts kernel: one block
   visit of the traversal kernels taken apart (P1,
   ``scripts/prof_kernel_parts.py::make_kernel``; P2's product variants,
-  ``scripts/prof_kernel_parts2.py::make_kernel``);
+  ``scripts/prof_kernel_parts2.py::make_kernel``), on ``ops`` split once
+  by :func:`parts_operand` into the order its tensor-core products read;
 * :func:`empty` launches its copy kernel, ``out = w[:, 0]`` with or without
   an operand it never reads (P4, ``scripts/prof_mega_sweep.py::empty_variant``,
   and P2's ``empty``);
@@ -45,7 +46,8 @@ _CODES = {"mm_bf16": 0, "mm_bf16x3": 1, "mm_f32": 2, "accept": 3, "argmin": 4, "
 PARTS_CONFIGS = frozenset(
     [(v, 16, False) for v in P1_VARIANTS] + [("mm_bf16", k, u) for k, u in P2_VARIANTS.values()]
 )
-PARTS_THREADS = 128  # rays per thread block of the parts kernel
+PARTS_TILE = 512  # rays per thread block of the parts kernel (csrc/prof_parts.cu kTile)
+PARTS_STAGE_BYTES = 32768  # operand bytes of one staged run (kStageBytes; mm_f32: half)
 SELECT_ROWS = 7  # attribute rows the select variant sums
 PLAIN_ROWS = 4096  # rays per chunk of the plain version
 
@@ -64,6 +66,60 @@ def _operands(variant: str, b: torch.Tensor):
     if variant == "mm_bf16":
         return (b_hi,)
     return b_hi, _bf16(b - b_hi)
+
+
+def parts_run(variant: str, k: int) -> int:
+    """Triangles (4 columns each) of one run the parts kernel stages: a
+    visit's ``tb`` must be a whole number of runs."""
+    if variant == "mm_f32":
+        return PARTS_STAGE_BYTES // 2 // (4 * 4 * k)
+    return PARTS_STAGE_BYTES // (4 * 2 * k * (1 if variant == "mm_bf16" else 2))
+
+
+def parts_operand(variant: str, ops: torch.Tensor, tb: int) -> torch.Tensor:
+    """``ops`` (K, cols) as the parts kernel reads it, split once; ``tb``
+    triangles (4 ``tb`` columns) a visit.
+
+    ``mm_f32``: the transposed (cols, K) f32.  The bf16 variants: (K / 16,
+    cols / 8, copies, 2, 8, 8) bf16 in wgmma's core-matrix order, element
+    ``[s, pg, c, kb, n, kk]`` = copy ``c`` (hi, then lo for the bf16x3
+    variants; as :func:`_operands` rounds them) of ``ops[16 s + 8 kb + kk,
+    col]`` at position ``p = 8 pg + n``: per 16-row step and group of 8
+    positions, two 8 x 8 core matrices (rows 0-7, 8-15) a copy, a column's
+    8 rows contiguous.  Positions take a visit's triangles in groups of 8
+    with their four quadrants side by side: quadrant ``q`` of triangle
+    ``j`` of visit ``blk`` (column ``blk * 4 tb + q tb + j``) at position
+    ``blk * 4 tb + 32 (j // 8) + 8 q + j % 8``."""
+    k, cols = ops.shape
+    if variant == "mm_f32":
+        return ops.t().contiguous()
+    hi = ops.to(torch.bfloat16)
+    copies = [hi] if variant == "mm_bf16" else [hi, (ops - hi.to(torch.float32)).to(torch.bfloat16)]
+    x = torch.stack(copies)  # c, K, cols
+    nc = len(copies)
+    x = x.reshape(nc, k, cols // (4 * tb), 4, tb // 8, 8).transpose(3, 4)  # c, K, blk, jb, q, j % 8
+    x = x.reshape(nc, k // 16, 2, 8, cols // 8, 8)  # c, s, kb, kk, pg, n
+    return x.permute(1, 4, 0, 2, 5, 3).contiguous()
+
+
+def parts_bnorm(ops: torch.Tensor) -> torch.Tensor:
+    """The largest L2 norm of a column of ``ops`` (K, cols), as a (1,) f32
+    tensor: with each ray's norm it bounds how far the chain variants'
+    tensor-core sums may lie from the plain version's (``prof_parts.cu``
+    ``kSumErr``)."""
+    return torch.linalg.vector_norm(ops, dim=0).amax().reshape(1)
+
+
+def parts_smem(variant: str, k: int, unroll: bool = False) -> int:
+    """The dynamic shared memory the parts kernel's launch of (variant, k,
+    unroll) allows its kernel, as the CUDA runtime reports it for the loaded
+    kernel (the staging ring, which ``ptxas -v`` does not count)."""
+    if (variant, k, unroll) not in PARTS_CONFIGS:
+        raise ValueError(f"the parts kernel has no {variant!r} at K={k}, unroll={unroll}")
+    n = ctypes.c_int(0)
+    err = _build.library().ptt_prof_parts_smem(k, _CODES[variant], int(unroll), ctypes.byref(n))
+    _build.check(err, f"ptt_prof_parts_smem({variant}, K={k})")
+    return n.value
 
 
 def _product(variant: str, a: torch.Tensor, bs) -> torch.Tensor:
@@ -148,31 +204,38 @@ def parts(variant: str, w: torch.Tensor, ops: torch.Tensor, attr, r: int, tb: in
     """The parts kernel (see :func:`parts_plain`): P1's variants at K = 16,
     ``mm_bf16`` also at K = 32 and 128 and, with ``unroll``, with its visit
     loop unrolled (P2).  Launches ``csrc/prof_parts.cu`` for CUDA tensors
-    (counted in ``parts.launches`` and ``parts.variant_launches``), runs
-    the plain version for CPU ones."""
+    (counted in ``parts.launches`` and ``parts.variant_launches``) on
+    ``ops`` split by :func:`parts_operand` inside the call, runs the plain
+    version for CPU ones.  The kernel takes whole thread blocks of
+    PARTS_TILE rays and visits of whole staged runs (:func:`parts_run`)."""
     n, k = w.shape
     if w.device.type == "cpu":
         return parts_plain(variant, w, ops, attr, r, tb, nb)
-    if w.device.type != "cuda":
-        raise ValueError(f"no kernel for device {w.device}")
     if variant not in P1_VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if (variant, k, unroll) not in PARTS_CONFIGS:
         raise ValueError(f"the parts kernel has no {variant!r} at K={k}, unroll={unroll}")
-    if n % r or n % PARTS_THREADS:
-        raise ValueError(f"{n} rays do not fill tiles of {r} and thread blocks of {PARTS_THREADS}")
+    if n % r or n % PARTS_TILE:
+        raise ValueError(f"{n} rays do not fill tiles of {r} and thread blocks of {PARTS_TILE}")
+    run = parts_run(variant, k)
+    if tb % run:
+        raise ValueError(f"a visit of {tb} triangles is not a whole number of staged runs of {run}")
+    if w.device.type != "cuda":
+        raise ValueError(f"no kernel for device {w.device}")
     dev = w.device
     _check(w, "w", torch.float32, (n, k), dev)
     _check(ops, "ops", torch.float32, (k, 4 * tb * nb), dev)
     if variant == "select":
         _check(attr, "attr", torch.float32, (16, tb * nb), dev)
+    split = parts_operand(variant, ops, tb)
+    bnorm = parts_bnorm(ops) if variant in ("accept", "argmin", "select") else None
     out = torch.empty(n, dtype=torch.float32, device=dev)
     err = _build.library().ptt_prof_parts(
         ctypes.c_void_p(w.data_ptr()), ctypes.c_int(n), ctypes.c_int(k), ctypes.c_int(r),
-        ctypes.c_void_p(ops.data_ptr()), ctypes.c_int(ops.shape[1]),
+        ctypes.c_void_p(split.data_ptr()), ctypes.c_int(ops.shape[1]),
         ctypes.c_void_p(attr.data_ptr() if attr is not None else None),
         ctypes.c_int(attr.shape[1] if attr is not None else 0),
-        ctypes.c_int(tb), ctypes.c_int(nb), ctypes.c_int(_CODES[variant]),
+        ctypes.c_void_p(bnorm.data_ptr() if bnorm is not None else None), ctypes.c_int(tb), ctypes.c_int(nb), ctypes.c_int(_CODES[variant]),
         ctypes.c_int(int(unroll)), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
@@ -218,8 +281,8 @@ def empty(w: torch.Tensor, r: int, ops: torch.Tensor = None) -> torch.Tensor:
     err = _build.library().ptt_prof_parts(
         ctypes.c_void_p(w.data_ptr()), ctypes.c_int(n), ctypes.c_int(k), ctypes.c_int(r),
         ctypes.c_void_p(ops.data_ptr() if ops is not None else None), ctypes.c_int(0),
-        ctypes.c_void_p(None), ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0),
-        ctypes.c_int(_CODES["empty"]), ctypes.c_int(0), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(None), ctypes.c_int(0), ctypes.c_void_p(None), ctypes.c_int(0),
+        ctypes.c_int(0), ctypes.c_int(_CODES["empty"]), ctypes.c_int(0), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_prof_parts(empty)")

@@ -736,6 +736,170 @@ def test_prof_parts_kernel_depths_match_plain(dev, k, unroll):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=0.0)
 
 
+def _tie_inputs(variant, tb=512, nb=8, n=4096):
+    """Small integers, so that every product is exact in bf16 and in f32
+    (the kernel and the plain version then round alike, and equal t are
+    everywhere).  Ray c < 4 is the unit vector e_c and reads row c of ops
+    directly: there every triangle of every visit has s = (1, 1, 1) and
+    t = num / 3 >= 1, but for case c's first triangle, at t = 0 in visit 0,
+    whose four columns (all 16 rows) are copied to later triangles: in the
+    same lane (columns 10, 11 of a lane), in another lane of the same
+    8-column tile, in the next staged run and the last, in later visits
+    (a staged run: ``parts_run`` triangles).  Returns w, ops,
+    attr and each case's first triangle."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    g = np.random.default_rng(7)
+    w = g.integers(-1, 2, (n, 16)).astype(np.float32)
+    ops = g.integers(-1, 2, (16, 4 * tb * nb)).astype(np.float32)
+    attr = g.standard_normal((16, tb * nb)).astype(np.float32)
+    run = P.parts_run(variant, 16)
+    j = np.arange(tb)
+    for c in range(4):
+        w[c] = 0.0
+        w[c, c] = 1.0
+        for blk in range(nb):
+            base = blk * 4 * tb
+            ops[c, base + j] = ops[c, base + tb + j] = ops[c, base + 2 * tb + j] = 1.0
+            ops[c, base + 3 * tb + j] = 3.0 + (7 * j + blk) % 11
+    cases = [(10, [(0, 11)]), (20, [(0, 23)]), (40, [(0, 40 + run), (0, tb - 24)]),
+             (50, [(3, 50), (5, 7)])]
+    for c, (first, copies) in enumerate(cases):
+        ops[c, 3 * tb + first] = 0.0
+        for blk, jj in copies:
+            for q in range(4):
+                ops[:, blk * 4 * tb + q * tb + jj] = ops[:, q * tb + first]
+    return w, ops, attr, [first for first, _ in cases]
+
+
+@pytest.mark.parametrize("variant", ["argmin", "select", "accept", "mm_bf16", "mm_bf16x3",
+                                     "mm_f32"])
+def test_prof_parts_kernel_ties_take_the_first_column(dev, variant):
+    """On exact inputs full of equal minima the parts kernel equals the
+    plain version bit for bit, and where a triangle's columns were copied
+    to a later triangle (same lane, another lane, another staged run, a
+    later visit) the first one wins: argmin adds its index, select its
+    attribute rows."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    tb, nb = 512, 8
+    w, ops, attr, firsts = _tie_inputs(variant, tb, nb)
+    wt, opst, attrt = (torch.from_numpy(x).to(dev) for x in (w, ops, attr))
+    out = P.parts(variant, wt, opst, attrt, 512, tb, nb)
+    ref = P.parts_plain(variant, wt, opst, attrt, 512, tb, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    got = out[:4].cpu().numpy()
+    if variant == "argmin":  # visit 0 takes t = 0 at the first; no later visit is smaller
+        np.testing.assert_array_equal(got, np.float32(firsts))
+    if variant == "select":
+        def expected(col):
+            a = attr[0, col]
+            for k in range(1, 7):
+                a = np.float32(a + attr[k, col])
+            for _ in range(nb - 1):  # seven visits without an improve
+                s = a
+                for _ in range(6):
+                    s = np.float32(s + a)
+                a = np.float32(s + a * np.float32(0.0))
+            return a
+
+        np.testing.assert_array_equal(got, [expected(f) for f in firsts])
+        assert expected(10) != expected(11) and expected(20) != expected(23)
+    assert torch.isclose(out, ref, rtol=1e-5, atol=0.0).all()
+
+
+BOUNDARY_RAYS = (0, 9, 70, 135, 200, 263, 300, 511)  # in several m-tiles, quads and rows
+
+
+def _two_rows(x: np.ndarray):
+    """Values b, r for ops rows c and d, so that a ray e_c + e_d sums x
+    through the bf16x3 split to within an ulp or so: b = bf16 hi + lo of x,
+    r = bf16(x - b)."""
+    def bf16(v):
+        return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(torch.bfloat16).float().numpy()
+
+    x = x.astype(np.float32)
+    hi = bf16(x)
+    b = hi + bf16(x - hi)
+    return b, bf16(x - b)
+
+
+def _boundary_inputs(tb=512, nb=8, n=4096):
+    """Standard normals, but for ray BOUNDARY_RAYS[i] = e_2i + e_2i+1, whose
+    sums rows 2i and 2i + 1 of ops give (_two_rows).  Its pairs sit at the
+    accept chain's bounds (u or v at -0.005, u at 1.005, u + v at 1.005; t
+    at -0.005 for rays 0 and 4), each a few ulps either way, with t drawn
+    from a few values an ulp apart, so that the visit's winner is settled by
+    a hair and by the first index.  Rays 0-3 have every triangle so; rays 4-7 six a
+    visit (the same lane, two others, the next staged run, the last), the
+    rest far outside.  Returns w, ops, attr and the plain chain's accept
+    mask over the special rays' pairs with their (u, v, t), from the plain
+    version's sums."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    g = np.random.default_rng(11)
+    w = g.standard_normal((n, 16)).astype(np.float32)
+    ops = g.standard_normal((16, 4 * tb * nb)).astype(np.float32)
+    attr = g.standard_normal((16, tb * nb)).astype(np.float32)
+    m = nb * tb
+    for i, ray in enumerate(BOUNDARY_RAYS):
+        w[ray] = 0.0
+        w[ray, 2 * i] = w[ray, 2 * i + 1] = 1.0
+        det = g.uniform(0.5, 3.0, m) * g.choice([-1.0, 1.0], m)
+        kind = g.integers(0, 5 if i in (0, 4) else 4, m)  # t at -0.005 for two rays
+        eps = g.uniform(-4e-7, 4e-7, (3, m))
+        u = np.choose(kind, [-0.005 * (1 + eps[0]), 0.3, 1.005 * (1 + eps[0]), 0.6, 0.2])
+        v = np.choose(kind, [0.4, -0.005 * (1 + eps[1]), -0.004, 0.405 * (1 + eps[1]), 0.3])
+        t0 = np.repeat(g.uniform(0.5, 4.0, nb), tb)
+        t = t0 * (1.0 + 2.0 ** -22 * g.integers(0, 4, m))
+        t = np.where(kind == 4, -0.005 * (1 + eps[2]), t)
+        if i >= 4:  # six pairs a visit at the bounds, the rest far outside
+            keep = np.zeros((nb, tb), bool)
+            keep[:, [10, 11, 20, 23, 10 + 128, tb - 2]] = True
+            u = np.where(keep.reshape(-1), u, -0.5)
+        ca, ab = u * det, v * det
+        x = np.stack([ab, det - ab - ca, ca, t * det])  # (4, nb * tb): quadrant, blk * tb + j
+        b, r = _two_rows(x)
+        cols = (np.arange(nb)[:, None] * 4 * tb + np.arange(4)[:, None, None] * tb
+                + np.arange(tb)).reshape(4, -1)  # (4, nb * tb) column of quadrant q
+        ops[2 * i, cols] = b
+        ops[2 * i + 1, cols] = r
+    opst = torch.from_numpy(ops)
+    s = P._product("accept", torch.from_numpy(w[list(BOUNDARY_RAYS)]), P._operands("accept", opst))
+    s = s.reshape(len(BOUNDARY_RAYS), nb, 4, tb).transpose(0, 2).reshape(4, -1)
+    det = (s[0] + s[1]) + s[2]
+    inv = 1.0 / det
+    t, u, v = s[3] * inv, s[2] * inv, s[0] * inv
+    acc = (u >= -0.005) & (v >= -0.005) & (t >= -0.005) & (u <= 1.005) & (u + v <= 1.005)
+    return w, ops, attr, acc, (u, v, t)
+
+
+@pytest.mark.parametrize("variant", ["accept", "argmin", "select"])
+def test_prof_parts_chain_settles_boundary_pairs_exactly(dev, variant):
+    """The chain variants choose candidates on the tensor cores' sums but
+    settle them with the plain version's rounding: where pairs sit at the
+    accept chain's bounds by an ulp, and t differ by an ulp or tie, the
+    kernel equals the plain version bit for bit on every ray."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    tb, nb = 512, 8
+    w, ops, attr, acc, (u, v, t) = _boundary_inputs(tb, nb)
+    # the inputs reach the bounds: pairs within 4 ulps of one, accepted and not
+    ulp = 2.0 ** -23
+    near = (((u + 0.005).abs() < 4 * ulp * 0.005) | ((v + 0.005).abs() < 4 * ulp * 0.005)
+            | ((t + 0.005).abs() < 4 * ulp * 0.005) | ((u - 1.005).abs() < 8 * ulp)
+            | ((u + v - 1.005).abs() < 8 * ulp))
+    assert (near & acc).sum() > 1000 and (near & ~acc).sum() > 1000
+    wt, opst, attrt = (torch.from_numpy(x).to(dev) for x in (w, ops, attr))
+    out = P.parts(variant, wt, opst, attrt, 512, tb, nb)
+    ref = P.parts_plain(variant, wt, opst, attrt, 512, tb, nb)
+    torch.cuda.synchronize()
+    rays = list(BOUNDARY_RAYS)
+    assert torch.equal(out[rays].view(torch.int32), ref[rays].view(torch.int32))
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
 @pytest.mark.parametrize("with_ops", [True, False])
 def test_prof_empty_kernel_matches_plain(dev, with_ops):
     from pathtracerap_tpu_torch.kernels import prof as P

@@ -21,6 +21,7 @@ import torch
 from pathtracerap_tpu_torch import build_cornell_box_scene, build_reference_scene
 from pathtracerap_tpu_torch.kernels import _build
 from pathtracerap_tpu_torch.kernels import megakernel as TM
+from pathtracerap_tpu_torch.kernels import prof as KP
 from pathtracerap_tpu_torch.kernels import trace as TT
 from pathtracerap_tpu_torch.ops.math import normalize, normalize_rsqrt
 from pathtracerap_tpu_torch.ops.intersect import HitRecord
@@ -373,6 +374,9 @@ def test_merge_key_orders_hits():
     ("nearest_hit.cu", "kGroup", CLUSTER_GROUP),
     ("nearest_hit.cu", "kTile", TT.DENSE_TILE),
     ("nearest_hit.cu", "kRun", TT.DENSE_RUN),
+    ("prof_parts.cu", "kTile", KP.PARTS_TILE),
+    ("prof_parts.cu", "kStageBytes", KP.PARTS_STAGE_BYTES),
+    ("prof_parts.cu", "kSelectRows", KP.SELECT_ROWS),
 ])
 def test_wrapper_constants_match_kernel_sources(source, name, value):
     """The wrappers size launches and validate inputs with copies of the
