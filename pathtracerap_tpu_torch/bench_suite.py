@@ -11,7 +11,8 @@ Configs (BASELINE.md "Benchmark configs"):
   5. megascene  — a 358,824-triangle sphere in the room: 701 blocks of the
                   fused pack, above JAX's streaming threshold of 313
   6. gridparity — the reference scene on the uniform-grid DDA parity
-                  engine, which the port does not have yet (ROADMAP A10)
+                  engine (kernel G1), driven as JAX's row drives it:
+                  one RNG tile over all the rays
 
 Each config renders ``measure_spp`` samples per pixel and reports Mrays/s
 (pixels x spp x bounces over the wall, dead lanes counted) and the wall a
@@ -134,6 +135,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def render_gridparity(scene, cfg: RenderConfig) -> torch.Tensor:
+    """The gridparity row's render: the parity engine with one RNG tile
+    over all the rays, as JAX's row draws them
+    (``pathtracerap_tpu/bench_suite.py::_render_parity_stepwise``; the
+    Renderer's tiles are 8192 rays).  Returns the (H, W, 3) image."""
+    from .ops.rng import prng_key
+    from .render.wavefront import render_accumulate
+
+    w, h = cfg.resolution
+    acc = render_accumulate(scene, prng_key(cfg.seed, scene.device), cfg.camera, cfg.resolution,
+                            cfg.samples_per_pixel, cfg.max_bounces, engine="parity",
+                            parity=cfg.parity, tile_size=w * h)
+    return acc.reshape(h, w, 3) / cfg.samples_per_pixel
+
+
 def run_config(name: str, engine: str = "fused", repeats: int = 2, device="cuda") -> dict:
     """Render config ``name`` at its ``measure_spp`` on ``device``: one
     warm-up render, then the fastest of ``repeats`` timed ones."""
@@ -141,23 +157,22 @@ def run_config(name: str, engine: str = "fused", repeats: int = 2, device="cuda"
 
     spec = suite_configs()[name]
     engine = spec.get("engine", engine)
-    if engine == "parity":
-        raise NotImplementedError(f"config {name!r} runs the parity DDA engine (ROADMAP A10)")
     device = torch.device(device)
     host = spec["scene"]()
     spp = spec["measure_spp"]
     cfg = RenderConfig(engine=engine, **{**spec["cfg"], "samples_per_pixel": spp,
                                          "samples_per_chunk": spp})
     r = Renderer(host.to_device(device), cfg, device=device)
-    img = r.render()  # warm-up
+    w, h = cfg.resolution
+    render = (lambda: render_gridparity(r.scene, cfg)) if engine == "parity" else r.render
+    img = render()  # warm-up
     best = float("inf")
     for _ in range(repeats):
         _sync(device)
         t0 = time.perf_counter()
-        img = r.render()
+        img = render()
         _sync(device)
         best = min(best, time.perf_counter() - t0)
-    w, h = cfg.resolution
     full_spp = spec["cfg"].get("samples_per_pixel", spp)
     return {
         "config": name,

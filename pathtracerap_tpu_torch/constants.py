@@ -13,6 +13,7 @@ EPSILON = 0.005
 # The reference's miss sentinel for impact distances (Config.h:5,
 # Renderer.cpp:384,402); not IEEE inf.
 FLOAT_MAX = 9999999.0
+FLOAT_MIN = -9999990.0
 
 # Uniform-grid resolution per mesh (Config.h:8-10).
 GRID_X = 25

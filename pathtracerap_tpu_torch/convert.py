@@ -1,11 +1,11 @@
 """The JAX package's device data as the port's dataclasses.
 
 The JAX package's ``SceneDevice`` and ``WorldTriangles`` arrive here as a
-dict of their fields, each one ``np.asarray``'d (the static ints as they
-are).  Fields the port has no use for (the uniform grids) are dropped;
-the dense tracer's operands (``edge_mat``, ``plane_mat``,
-``cluster_aabb``) come across as they are.  With these, the JAX bake can be fed to the
-port's renderer so the two renderers are compared alone.
+dict of their fields, each one ``np.asarray``'d (the static ints and
+``grid_dims`` as they are); the uniform grids and the dense tracer's
+operands (``edge_mat``, ``plane_mat``, ``cluster_aabb``) come across as
+they are.  With these, the JAX bake can be fed to the port's renderer so
+the two renderers are compared alone.
 :func:`params_from_numpy` does the same for a JAX ``extract_params`` dict.
 """
 
@@ -30,6 +30,8 @@ def _from_numpy(cls, fields: dict, device):
         v = fields[f.name]
         if f.name in _INT_FIELDS:
             out[f.name] = int(v)
+        elif f.name == "grid_dims":
+            out[f.name] = tuple(int(d) for d in v)
         else:
             out[f.name] = torch.as_tensor(np.array(v), device=device)
     return cls(**out)

@@ -67,6 +67,10 @@ def render_for_params(
     ``fused``, of ``tile_size`` rays for the per-bounce ``pallas`` and
     ``mxu``.  ``parity=False`` enables the quality-mode cosine throughput
     factor, so color carries vertex gradients."""
+    if engine == "parity":
+        # the grid DDA (kernel G1) has no backward
+        raise NotImplementedError("engine 'parity' has no differentiable form in this package "
+                                  "(ROADMAP A10, still open)")
     s = apply_params(scene, params)
     world = bake_world_triangles(s)
     if ro is None:

@@ -60,7 +60,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_prof_parts_smem.restype = i
     lib.ptt_prof_parts_smem.argtypes = [i, i, i, p]
     lib.ptt_prof_argmin.restype = i
-    lib.ptt_prof_argmin.argtypes = [p, i, i, p, p, p]
+    lib.ptt_prof_argmin.argtypes = [p, i, i, p, p, i, i, p]
+    lib.ptt_noop.restype = i
+    lib.ptt_noop.argtypes = [i, i, p]
+    lib.ptt_grid_dda.restype = i
+    lib.ptt_grid_dda.argtypes = [p, p, i, *[p] * 5, i, *[p] * 13, i, i, i, *[p] * 7, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

@@ -50,6 +50,7 @@ PARTS_TILE = 512  # rays per thread block of the parts kernel (csrc/prof_parts.c
 PARTS_STAGE_BYTES = 32768  # operand bytes of one staged run (kStageBytes; mm_f32: half)
 SELECT_ROWS = 7  # attribute rows the select variant sums
 PLAIN_ROWS = 4096  # rays per chunk of the plain version
+ARGMIN_WARPS = 1  # rows a thread block of P3 (csrc/prof_argmin.cu), chosen on the card
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -310,10 +311,19 @@ def argmin_int_plain(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
 argmin_int_plain.calls = 0
 
 
-def argmin_int(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
+def argmin_vec_path(x: torch.Tensor) -> bool:
+    """Whether P3 takes its float4 path on x: 512 columns and a 16-byte
+    aligned start (rows are then aligned too); other inputs take its
+    strided scalar loop."""
+    return x.shape[1] == 512 and x.data_ptr() % 16 == 0
+
+
+def argmin_int(x: torch.Tensor, bases: torch.Tensor, warps: int = ARGMIN_WARPS) -> torch.Tensor:
     """P3 (see :func:`argmin_int_plain`) on x (rows, cols) f32 and bases
-    (4,) int32.  Launches ``csrc/prof_argmin.cu`` for CUDA tensors (counted
-    in ``argmin_int.launches``), runs the plain version for CPU ones."""
+    (4,) int32.  Launches ``csrc/prof_argmin.cu`` for CUDA tensors, ``warps``
+    rows a thread block (counted in ``argmin_int.launches`` and, by path,
+    ``argmin_int.variant_launches``: ``"vec512"`` or ``"general"``), runs
+    the plain version for CPU ones."""
     rows, cols = x.shape
     if x.device.type == "cpu":
         return argmin_int_plain(x, bases)
@@ -322,15 +332,20 @@ def argmin_int(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     dev = x.device
     _check(x, "x", torch.float32, (rows, cols), dev)
     _check(bases, "bases", torch.int32, (4,), dev)
+    if warps not in (1, 2, 4, 8):
+        raise ValueError(f"warps must be 1, 2, 4 or 8, got {warps}")
+    vec = argmin_vec_path(x)
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     err = _build.library().ptt_prof_argmin(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_int(rows), ctypes.c_int(cols),
-        ctypes.c_void_p(bases.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        ctypes.c_void_p(bases.data_ptr()), ctypes.c_void_p(out.data_ptr()), ctypes.c_int(vec),
+        ctypes.c_int(warps), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_prof_argmin")
     argmin_int.launches += 1
+    argmin_int.variant_launches["vec512" if vec else "general"] += 1
     return out
 
 
 argmin_int.launches = 0
+argmin_int.variant_launches = Counter()

@@ -10,14 +10,15 @@ accumulates the samples through :func:`render_accumulate` on one engine:
 * the per-bounce engines, which trace and then shade in torch once per
   bounce: ``pallas`` (:func:`..kernels.trace.trace_pallas`: kernel 1's
   worklists, or kernel 5's dense sweep on a world without a fused pack,
-  where ``fused`` and ``binned`` route too) and ``mxu`` (the brute-force
-  :func:`..ops.plucker.trace_mxu`).
+  where ``fused`` and ``binned`` route too), ``mxu`` (the brute-force
+  :func:`..ops.plucker.trace_mxu`) and ``parity``, the reference's
+  uniform-grid DDA (:func:`..kernels.dda.grid_trace`, kernel G1 on the
+  card), which needs no world bake.
 
 JAX scans the per-bounce engines over tiles of ``tile_size`` rays, one
 after the other.  The port traces the whole image's wavefront in one
 launch a bounce and keeps only the tiles' RNG numbering, so every pixel
-draws JAX's stream.  The parity DDA engine raises ``NotImplementedError``
-naming its ROADMAP item.
+draws JAX's stream.
 
 ``Renderer.render`` renders in chunks of ``samples_per_chunk`` samples
 (``render_accumulate``'s ``sample_offset`` and ``init_accum``), saves a
@@ -37,6 +38,7 @@ import torch
 
 from ..config import RenderConfig
 from ..io.bmp import quantize_image, write_bmp
+from ..kernels.dda import grid_trace
 from ..kernels.megakernel import render_accumulate_binned, render_accumulate_fused
 from ..kernels.trace import trace_pallas
 from ..ops.plucker import bake_world_triangles, trace_mxu
@@ -49,8 +51,7 @@ from .camera import generate_rays, jitter_step
 from .shade import RayState, gather_contribution, shade
 
 DEFAULT_TILE = 8192
-ENGINES = ("fused", "binned", "pallas", "mxu")
-_MISSING = {"parity": "the parity DDA engine (ROADMAP A10)"}
+ENGINES = ("fused", "binned", "pallas", "mxu", "parity")
 
 
 def effective_engine(engine: str, world, jitter: bool) -> str:
@@ -70,15 +71,15 @@ def effective_engine(engine: str, world, jitter: bool) -> str:
 
 def _make_tracer(scene: SceneDevice, engine: str, world=None):
     """Tracers take (ro, rd, alive=None); ``pallas`` culls on the lanes'
-    liveness, ``mxu`` ignores it."""
+    liveness, ``mxu`` and ``parity`` ignore it."""
+    if engine == "parity":
+        return lambda ro, rd, alive=None: grid_trace(scene, ro.contiguous(), rd.contiguous())
     if engine in ("mxu", "pallas"):
         if world is None:
             world = bake_world_triangles(scene)
         if engine == "pallas":
             return lambda ro, rd, alive=None: trace_pallas(world, ro, rd, alive=alive)
         return lambda ro, rd, alive=None: trace_mxu(world, ro, rd)
-    if engine in _MISSING:
-        raise NotImplementedError(f"engine {engine!r}: {_MISSING[engine]}")
     raise ValueError(f"unknown engine: {engine!r}")
 
 
@@ -207,13 +208,11 @@ class Renderer:
         self.device = scene.device
         self.scene = scene
         self.config = config
-        self.world = bake_world_triangles(scene) if config.engine in ENGINES else None
+        if config.engine not in ENGINES:
+            raise ValueError(f"unknown engine: {config.engine!r}")
+        # the parity DDA traces the scene's grids: no world bake
+        self.world = bake_world_triangles(scene) if config.engine != "parity" else None
         self.engine = effective_engine(config.engine, self.world, config.camera.jitter)
-        if self.engine not in ENGINES:
-            raise NotImplementedError(
-                f"engine {config.engine!r} routes to {self.engine!r}: "
-                + _MISSING.get(self.engine, "not an engine of this package")
-            )
 
     def render(
         self,

@@ -6,19 +6,21 @@ the NumPy :class:`~pathtracerap_tpu_torch.scene.types.SceneHost`;
 :func:`build_cornell_box_scene` builds the synthetic single-block test
 scene.
 Transform conventions match glm (column vectors, ``T @ R @ S``).  The
-uniform-grid build of the reference package is left out: it serves only
-the parity DDA engine, which this package does not have yet.
+builder makes one uniform grid per mesh that a model uses, shared by that
+mesh's instances (:mod:`.grid`, ``Scene.cpp:320-333``): the parity DDA
+engine's acceleration structure.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import constants
 from ..io.obj import ObjMesh, load_obj
+from .grid import build_uniform_grid, grids_to_ell
 from .types import Material, MaterialType, SceneHost
 
 ASSET_DIR = os.path.join(
@@ -49,6 +51,24 @@ def rotation_y_matrix(degrees: float) -> np.ndarray:
     return m
 
 
+def rotation_x_matrix(degrees: float) -> np.ndarray:
+    r = np.deg2rad(degrees)
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4, dtype=np.float64)
+    m[1, 1], m[1, 2] = c, -s
+    m[2, 1], m[2, 2] = s, c
+    return m
+
+
+def rotation_z_matrix(degrees: float) -> np.ndarray:
+    r = np.deg2rad(degrees)
+    c, s = np.cos(r), np.sin(r)
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0], m[0, 1] = c, -s
+    m[1, 0], m[1, 1] = s, c
+    return m
+
+
 def trs(translate, rotate_y_deg, scale) -> np.ndarray:
     """glm-style ``T * R * S`` (scale applied first)."""
     return translation_matrix(translate) @ rotation_y_matrix(rotate_y_deg) @ scale_matrix(scale)
@@ -57,7 +77,8 @@ def trs(translate, rotate_y_deg, scale) -> np.ndarray:
 class SceneBuilder:
     """Accumulates meshes + instances, finalizes to :class:`SceneHost`."""
 
-    def __init__(self):
+    def __init__(self, grid_dims: Tuple[int, int, int] = (25, 25, 25)):
+        self.grid_dims = tuple(grid_dims)
         self._meshes: List[ObjMesh] = []
         self._instances: List[dict] = []
 
@@ -126,21 +147,61 @@ class SceneBuilder:
             mat_ri[i] = mat.refractive_index
             mat_refl[i] = mat.reflectivity
 
+        vertex_pos = np.concatenate(vertex_pos).astype(np.float32)
+        tri_vidx = np.concatenate(tri_vidx).astype(np.int32)
+        mesh_bbox_min = np.stack(mesh_bbox_min).astype(np.float32)
+        mesh_bbox_max = np.stack(mesh_bbox_max).astype(np.float32)
+
+        # one grid per unique mesh, shared by its instances (Scene.cpp:320-333)
+        model_grid = np.zeros(n_inst, np.int32)
+        grid_of_mesh: dict = {}
+        grid_mesh, grid_voxel_start, grid_voxel_width = [], [], []
+        voxel_tri_start, voxel_tri_count, per_voxel_tris = [], [], []
+        voxel_off = pool_off = 0
+        for i in range(n_inst):
+            mi = int(model_mesh[i])
+            if mi not in grid_of_mesh:
+                grid_of_mesh[mi] = len(grid_mesh)
+                ts, te = mesh_tri_start[mi], mesh_tri_end[mi]
+                g = build_uniform_grid(vertex_pos[tri_vidx[ts:te]], mesh_bbox_min[mi],
+                                       mesh_bbox_max[mi], dims=self.grid_dims, tri_index_base=ts)
+                grid_mesh.append(mi)
+                grid_voxel_start.append(voxel_off)
+                grid_voxel_width.append(g.voxel_width)
+                voxel_tri_start.append(g.voxel_tri_start + pool_off)
+                voxel_tri_count.append(g.voxel_tri_count)
+                per_voxel_tris.append(g.tri_indices)
+                voxel_off += g.voxel_tri_start.shape[0]
+                pool_off += g.tri_indices.shape[0]
+            model_grid[i] = grid_of_mesh[mi]
+        voxel_tri_start = np.concatenate(voxel_tri_start).astype(np.int32)
+        voxel_tri_count = np.concatenate(voxel_tri_count).astype(np.int32)
+        per_voxel_tris = np.concatenate(per_voxel_tris).astype(np.int32)
+
         return SceneHost(
-            vertex_pos=np.concatenate(vertex_pos).astype(np.float32),
+            vertex_pos=vertex_pos,
             vertex_nrm=np.concatenate(vertex_nrm).astype(np.float32),
-            tri_vidx=np.concatenate(tri_vidx).astype(np.int32),
+            tri_vidx=tri_vidx,
             mesh_tri_start=np.asarray(mesh_tri_start, np.int32),
             mesh_tri_end=np.asarray(mesh_tri_end, np.int32),
-            mesh_bbox_min=np.stack(mesh_bbox_min).astype(np.float32),
-            mesh_bbox_max=np.stack(mesh_bbox_max).astype(np.float32),
+            mesh_bbox_min=mesh_bbox_min,
+            mesh_bbox_max=mesh_bbox_max,
             model_mesh=model_mesh,
+            model_grid=model_grid,
             model_to_world=m2w,
             world_to_model=w2m,
             mat_type=mat_type,
             mat_color=mat_color,
             mat_refractive_index=mat_ri,
             mat_reflectivity=mat_refl,
+            grid_mesh=np.asarray(grid_mesh, np.int32),
+            grid_voxel_start=np.asarray(grid_voxel_start, np.int32),
+            grid_voxel_width=np.stack(grid_voxel_width).astype(np.float32),
+            voxel_tri_start=voxel_tri_start,
+            voxel_tri_count=voxel_tri_count,
+            per_voxel_tris=per_voxel_tris,
+            voxel_tris_ell=grids_to_ell(voxel_tri_start, voxel_tri_count, per_voxel_tris),
+            grid_dims=self.grid_dims,
         )
 
 

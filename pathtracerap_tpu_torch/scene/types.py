@@ -2,15 +2,17 @@
 
 * :class:`SceneHost` — NumPy structure-of-arrays built on the host by
   :mod:`pathtracerap_tpu_torch.scene.build`: geometry pools, the model
-  (instance) table and per-model materials.
+  (instance) table, per-model materials and the uniform grids.
 * :class:`SceneDevice` — the same arrays as torch tensors on one device,
   plus the static world-instance maps the bake consumes.
 * :class:`WorldTriangles` — the baked world-space triangle soup with the
   fused operand pack and attribute rows that the CUDA kernels read
   (see :func:`pathtracerap_tpu_torch.ops.plucker.bake_world_triangles`).
 
-The reference's uniform-grid fields serve only the parity DDA engine,
-which is not ported yet; they are left out here.
+The uniform grids (one per mesh that a model uses, ``Scene.cpp:318-396``)
+are the reference's CSR buckets plus a padded ELL view; they serve the
+parity DDA engine (:mod:`pathtracerap_tpu_torch.ops.intersect`,
+``csrc/grid_dda.cu``).
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ class Material:
 
 @dataclasses.dataclass
 class SceneHost:
-    """Host-side scene: NumPy SoA of the geometry pools (model space) and
-    the model table."""
+    """Host-side scene: NumPy SoA of the geometry pools (model space), the
+    model table and the uniform grids (CSR buckets, ``Scene.cpp:377-394``,
+    and their padded ELL view)."""
 
     # geometry pools
     vertex_pos: np.ndarray  # (V, 3) f32
@@ -61,12 +64,23 @@ class SceneHost:
 
     # model (instance) table
     model_mesh: np.ndarray  # (I,) i32
+    model_grid: np.ndarray  # (I,) i32
     model_to_world: np.ndarray  # (I, 4, 4) f32
     world_to_model: np.ndarray  # (I, 4, 4) f32
     mat_type: np.ndarray  # (I,) i32
     mat_color: np.ndarray  # (I, 3) f32
     mat_refractive_index: np.ndarray  # (I,) f32
     mat_reflectivity: np.ndarray  # (I,) f32
+
+    # uniform grids, one per unique mesh that at least one model references
+    grid_mesh: np.ndarray  # (G,) i32 mesh index
+    grid_voxel_start: np.ndarray  # (G,) i32 offset into the voxel pool
+    grid_voxel_width: np.ndarray  # (G, 3) f32
+    voxel_tri_start: np.ndarray  # (NV,) i32 CSR start into per_voxel_tris
+    voxel_tri_count: np.ndarray  # (NV,) i32
+    per_voxel_tris: np.ndarray  # (P,) i32 triangle indices (global)
+    voxel_tris_ell: np.ndarray  # (NV, K) i32, padded with -1
+    grid_dims: tuple = (25, 25, 25)
 
     @property
     def num_models(self) -> int:
@@ -111,11 +125,20 @@ class SceneHost:
             mesh_bbox_min=put(self.mesh_bbox_min, f32),
             mesh_bbox_max=put(self.mesh_bbox_max, f32),
             model_mesh=put(self.model_mesh, i32),
+            model_grid=put(self.model_grid, i32),
             model_to_world=put(self.model_to_world, f32),
             world_to_model=put(self.world_to_model, f32),
             mat_type=put(self.mat_type, i32),
             mat_color=put(self.mat_color, f32),
             mat_refractive_index=put(self.mat_refractive_index, f32),
+            grid_mesh=put(self.grid_mesh, i32),
+            grid_voxel_start=put(self.grid_voxel_start, i32),
+            grid_voxel_width=put(self.grid_voxel_width, f32),
+            voxel_tri_start=put(self.voxel_tri_start, i32),
+            voxel_tri_count=put(self.voxel_tri_count, i32),
+            per_voxel_tris=put(self.per_voxel_tris, i32),
+            voxel_tris_ell=put(self.voxel_tris_ell, i32),
+            grid_dims=tuple(self.grid_dims),
             world_tri_src=put(world_tri_src, i32),
             world_tri_model=put(world_tri_model, i32),
             n_world_valid=int((world_tri_src >= 0).sum()),
@@ -132,13 +155,22 @@ class SceneDevice:
     mesh_bbox_min: torch.Tensor  # (M, 3) f32
     mesh_bbox_max: torch.Tensor  # (M, 3) f32
     model_mesh: torch.Tensor  # (I,) i32
+    model_grid: torch.Tensor  # (I,) i32
     model_to_world: torch.Tensor  # (I, 4, 4) f32
     world_to_model: torch.Tensor  # (I, 4, 4) f32
     mat_type: torch.Tensor  # (I,) i32
     mat_color: torch.Tensor  # (I, 3) f32
+    grid_mesh: torch.Tensor  # (G,) i32
+    grid_voxel_start: torch.Tensor  # (G,) i32
+    grid_voxel_width: torch.Tensor  # (G, 3) f32
+    voxel_tri_start: torch.Tensor  # (NV,) i32
+    voxel_tri_count: torch.Tensor  # (NV,) i32
+    per_voxel_tris: torch.Tensor  # (P,) i32
+    voxel_tris_ell: torch.Tensor  # (NV, K) i32, padded with -1
     world_tri_src: torch.Tensor  # (Tw,) i32 global triangle per world tri, -1 pad
     world_tri_model: torch.Tensor  # (Tw,) i32 owning model instance
     mat_refractive_index: Optional[torch.Tensor] = None  # (I,) f32
+    grid_dims: tuple = (25, 25, 25)
     # number of REAL instanced triangles (world_tri_src >= 0); the bake
     # uses it to drop pure-padding traversal blocks.  0 means unknown.
     n_world_valid: int = 0

@@ -105,9 +105,29 @@ def test_suite_scene_hosts_equal_jax(name):
         np.testing.assert_array_equal(getattr(port, f.name), getattr(ref, f.name), err_msg=f.name)
 
 
-def test_gridparity_names_its_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        run_config("gridparity", device="cpu")
+def test_gridparity_names_its_item(monkeypatch):
+    """The gridparity row runs the parity engine (ROADMAP A10), on the CPU
+    when asked: here at a shrunken resolution."""
+    import pathtracerap_tpu_torch.bench_suite as B
+
+    real = B.suite_configs
+
+    def small():
+        cfgs = real()
+        cfgs["gridparity"]["cfg"]["resolution"] = (8, 6)
+        return cfgs
+
+    monkeypatch.setattr(B, "suite_configs", small)
+    # the plain DDA's many small ops: one intra-op thread (a parallel test
+    # run's workers would otherwise fight over the cores on every op)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = run_config("gridparity", repeats=1, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert out["engine"] == "parity" and out["resolution"] == [8, 6]
+    assert 0.0 < out["image_mean"] < 1.0
 
 
 def test_streamed_worklist_modes_match_jax(monkeypatch):

@@ -178,14 +178,13 @@ def test_effective_engine_routing(worlds):
 
 @pytest.mark.parametrize("engine, item", [("mxu", "A10"), ("parity", "A10"), ("pallas", "A11")])
 def test_renderer_names_missing_engines(engine, item):
-    """The parity DDA engine raises, naming its ROADMAP item; the
-    per-bounce ``mxu`` and ``pallas`` engines, ported with A11, render."""
+    """Every engine is ported: the per-bounce ``mxu`` and ``pallas`` (A11)
+    and the parity DDA (A10) render; a name the package does not know
+    raises."""
     scene = build_reference_scene().to_device("cpu")
     cfg = RenderConfig(resolution=(8, 8), samples_per_pixel=1, max_bounces=2, engine=engine)
-    if engine == "parity":
-        with pytest.raises(NotImplementedError, match=item):
-            Renderer(scene, cfg, device="cpu")
-        return
+    with pytest.raises(ValueError, match="unknown engine"):
+        Renderer(scene, RenderConfig(engine=engine + "_x"), device="cpu")
     r = Renderer(scene, cfg, device="cpu")
     assert r.engine == engine
     img = r.render(seed=1)

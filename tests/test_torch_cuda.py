@@ -921,3 +921,149 @@ def test_prof_argmin_kernel_matches_plain(dev):
     assert P.argmin_int.launches == before + 1
     assert torch.equal(out, P.argmin_int_plain(x, bases))
     assert out[7].item() == 3 * 128 + 20
+
+
+# --------------------------------------------------------------------------
+# slice 10: kernel G1 (the parity grid trace) and P3's redesign
+# --------------------------------------------------------------------------
+
+
+def _hits_bit_equal(a, b):
+    """Two (HitRecord, stats) pairs bit for bit on every field and stat."""
+    (ra, sa), (rb, sb) = a, b
+    for f in ("t", "normal", "mat_type", "mat_color", "mat_ri"):
+        x, y = getattr(ra, f), getattr(rb, f)
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            return f
+    for f in ("steps", "tri_tests"):
+        if not torch.equal(sa[f], sb[f]):
+            return f
+    return None
+
+
+def _odd_rays(dev, n=4096, spread=400.0):
+    """Rays from inside and around the scene, a quarter with one zero
+    direction component and an eighth with two."""
+    g = torch.Generator().manual_seed(5)
+    o = (torch.rand(n, 3, generator=g) * 2.0 - 1.0) * spread
+    d = torch.randn(n, 3, generator=g)
+    d[: n // 4, 0] = 0.0
+    d[n // 4: 3 * n // 8, 1:] = 0.0
+    return o.to(dev).contiguous(), d.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "reference"])
+def test_grid_dda_kernel_matches_plain(dev, scene_name):
+    """G1 against ops/intersect.trace_parity on the card: primaries, their
+    bounce-1 rays and odd rays, every field and stat bit for bit."""
+    from pathtracerap_tpu_torch.kernels import dda as DD
+    from pathtracerap_tpu_torch.ops.intersect import trace_parity
+    from pathtracerap_tpu_torch.render.shade import RayState, shade
+
+    if scene_name == "cornell":
+        scene = build_cornell_box_scene().to_device(dev)
+        cam = CameraConfig(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0),
+                           plane_y=(-40.0, 40.0), plane_z=100.0)
+        spread = 200.0
+    else:
+        scene, cam, spread = build_reference_scene().to_device(dev), CameraConfig(), 600.0
+    ro, rd = generate_rays(cam, (128, 96), device=dev)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    before = DD.grid_trace.launches
+    k0 = DD.grid_trace(scene, ro, rd, return_stats=True)
+    torch.cuda.synchronize()
+    assert DD.grid_trace.launches == before + 1
+    assert _hits_bit_equal(k0, trace_parity(scene, ro, rd, return_stats=True)) is None
+    u = chunk_uniforms(prng_key(3, dev), 0, 5, ro.shape[0], ro.shape[0], 0, rng_tile=2048)
+    st = shade(RayState.primary(ro, rd, 5), k0[0], u[:, :4])
+    o1, d1 = st.orig.contiguous(), st.dir.contiguous()
+    assert _hits_bit_equal(DD.grid_trace(scene, o1, d1, return_stats=True),
+                           trace_parity(scene, o1, d1, return_stats=True)) is None
+    o, d = _odd_rays(dev, spread=spread)
+    k = DD.grid_trace(scene, o, d, return_stats=True)
+    assert _hits_bit_equal(k, trace_parity(scene, o, d, return_stats=True)) is None
+    assert (k[0].t < 9999999.0).any() and (k[1]["tri_tests"] > 0).any()
+    # without stats: the same record
+    r = DD.grid_trace(scene, o, d)
+    assert torch.equal(r.t, k[0].t) and torch.equal(r.normal, k[0].normal)
+
+
+def test_grid_dda_wrapper_checks(dev):
+    from pathtracerap_tpu_torch.kernels import dda as DD
+
+    scene = build_cornell_box_scene().to_device(dev)
+    ro, rd = _odd_rays(dev, n=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        DD.grid_trace(scene, ro.t().contiguous().t(), rd)
+    with pytest.raises(ValueError, match="expected"):
+        DD.grid_trace(scene, ro.double(), rd)
+    with pytest.raises(ValueError, match="expected"):
+        DD.grid_trace(scene, ro[:, :2].contiguous(), rd)
+    with pytest.raises(ValueError, match="expected"):
+        DD.grid_trace(build_cornell_box_scene().to_device("cpu"), ro, rd)
+    bad = scene.replace(voxel_tri_start=scene.voxel_tri_start[:-1])
+    with pytest.raises(ValueError, match="grid tables"):
+        DD.grid_trace(bad, ro, rd)
+
+
+def test_parity_render_on_the_card_matches_cpu(dev):
+    """Renderer(engine="parity") at 32x16 on the card (G1) against the same
+    render on CPU tensors (the plain version): the image mean within 1e-4,
+    99.5 % of components within 1e-5."""
+    cfg = RenderConfig(resolution=(32, 16), samples_per_pixel=2, max_bounces=4, engine="parity")
+    a = Renderer(build_reference_scene().to_device(dev), cfg, device=dev).render().cpu()
+    b = Renderer(build_reference_scene().to_device("cpu"), cfg, device="cpu").render()
+    diff = (a - b).abs()
+    assert diff.mean().item() <= 1e-4
+    assert (diff <= 1e-5).float().mean().item() >= 0.995
+
+
+@pytest.mark.parametrize("rows", [512, 131072])
+def test_prof_argmin_kernel_nan_and_ties(dev, rows):
+    """P3 at the script's 512 x 512 and at 131,072 x 512, every rows-a-block
+    choice, rows with NaN (the first NaN wins), tied minima (the first
+    wins), all-equal rows, and other widths (the strided path)."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randn(rows, 512, generator=g)
+    x[::7, 100] = float("nan")
+    x[::14, 33] = float("nan")
+    x[3::13, 5] = x[3::13, 400] = -50.0
+    x[5::17] = 1.0
+    x[6::19, 511] = -60.0
+    x = x.to(dev)
+    bases = torch.tensor([3, 9, 1, 7], dtype=torch.int32, device=dev)
+    ref = P.argmin_int_plain(x, bases)
+    assert ref[0].item() == 3 * 128 + 33 and ref[3].item() == 3 * 128 + 5
+    for warps in (1, 2, 4, 8):
+        before = dict(P.argmin_int.variant_launches)
+        assert torch.equal(P.argmin_int(x, bases, warps=warps), ref), warps
+        assert P.argmin_int.variant_launches["vec512"] == before.get("vec512", 0) + 1
+    for cols in (1, 31, 200, 513):
+        y = x[:, :cols].contiguous() if cols <= 512 else torch.cat([x, x[:, :1]], dim=1)
+        assert torch.equal(P.argmin_int(y, bases), P.argmin_int_plain(y, bases)), cols
+
+
+def test_prof_argmin_wrapper_checks(dev):
+    """P3's wrapper: a misaligned x takes the strided path (and agrees); a
+    wrong dtype, shape, device or layout, or a rows-a-block choice the
+    kernel has not, raises."""
+    from pathtracerap_tpu_torch.kernels import prof as P
+
+    x = torch.randn(512 * 512 + 1, device=dev)[1:].view(512, 512)
+    bases = torch.tensor([3, 9, 1, 7], dtype=torch.int32, device=dev)
+    assert not P.argmin_vec_path(x)
+    n_general = P.argmin_int.variant_launches["general"]
+    assert torch.equal(P.argmin_int(x, bases), P.argmin_int_plain(x, bases))
+    assert P.argmin_int.variant_launches["general"] == n_general + 1
+    with pytest.raises(ValueError, match="expected"):
+        P.argmin_int(x.double(), bases)
+    with pytest.raises(ValueError, match="expected"):
+        P.argmin_int(x, bases.long())
+    with pytest.raises(ValueError, match="expected"):
+        P.argmin_int(x, bases.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        P.argmin_int(torch.randn(512, 1024, device=dev)[:, ::2], bases)
+    with pytest.raises(ValueError, match="warps"):
+        P.argmin_int(x, bases, warps=3)

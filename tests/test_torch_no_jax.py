@@ -2,7 +2,8 @@
 has none.  It imports nothing of the JAX package either, not even its
 jax-free host modules: it keeps its own copies (``tests/test_torch_host.py``
 holds them equal).  That covers its utilities (checkpoint/resume, metrics,
-profiling, debug checks) and its profiling scripts and kernels."""
+profiling, debug checks), its profiling scripts and kernels, the parity DDA
+engine, scene files and the AOV visualizer."""
 
 import os
 import re
@@ -58,6 +59,24 @@ with tempfile.TemporaryDirectory() as tmp:
     assert load_checkpoint(tmp + "/c.ckpt").samples_done == 2 and len(log.chunks) == 2
 from pathtracerap_tpu_torch.render.camera import generate_rays
 checked_trace(r.world, *generate_rays(cfg.camera, (8, 8), device="cpu"))
+# the parity DDA engine (kernels/dda.py, scene/grid.py), scene files (scene/dsl.py)
+# and the AOV visualizer (render/debug_viz.py); its plain version's many small
+# ops on one intra-op thread, as a parallel test run's workers share the cores
+torch.set_num_threads(1)
+from pathtracerap_tpu_torch.kernels.dda import grid_trace
+from pathtracerap_tpu_torch.render.debug_viz import write_aov_bmps
+from pathtracerap_tpu_torch.scene.dsl import load_scene_file, render_config_from_parsed
+from pathtracerap_tpu_torch.scene.grid import build_uniform_grid
+parsed = load_scene_file("scenes/diffuse_reference.scn")
+pcfg = render_config_from_parsed(parsed, resolution=(8, 6), samples_per_pixel=1, max_bounces=2,
+                                 engine="parity")
+pscene = parsed.scene.to_device("cpu")
+assert np.isfinite(Renderer(pscene, pcfg, device="cpu").render().numpy()).all()
+hits = grid_trace(pscene, *(t.contiguous() for t in generate_rays(pcfg.camera, (8, 6), device="cpu")))
+assert (hits.t < 9999999.0).any()
+with tempfile.TemporaryDirectory() as tmp:
+    assert len(write_aov_bmps(pscene, pcfg, tmp)) == 7
+assert build_uniform_grid(np.zeros((1, 3, 3), np.float32), np.zeros(3), np.ones(3)).dims == (25, 25, 25)
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """
