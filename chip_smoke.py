@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
-    python3 chip_smoke.py [--p3-parent DIR]
+    python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pathtracerap_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version at the shapes of
@@ -44,8 +44,7 @@ and read just after:
   against their fast form at the main paths' shapes and on degenerate
   rays; the profiling kernels P1 to P4 (``csrc/prof_parts.cu``,
   ``csrc/prof_argmin.cu``) against their plain versions at the scripts'
-  sizes, P3 also at 131,072 x 512 beside the launch floor (and, with
-  ``--p3-parent DIR``, beside another checkout's P3 in turns); a checkpointed render of the reference scene (binned) and of the
+  sizes, P3 also at 131,072 x 512 beside the launch floor; a checkpointed render of the reference scene (binned) and of the
   Cornell box (fused) stopped after its first chunk and resumed, bit-equal
   to the unbroken chunked render; the main-path render with a
   ``MetricsLogger`` and under ``profile_trace``; and the four profiling
@@ -172,7 +171,6 @@ MT_FLOPS = 47
 # bound 2, tmax + delta 1, the early exit 9, the exits 4
 DDA_STEP_FLOPS = 24
 P3_SHAPES = ((512, 512), (131072, 512))
-P3_WARPS = (1, 2, 4, 8)
 PROFILE_SPP = 4  # the profiled render: the main path's, at fewer samples
 
 
@@ -2054,8 +2052,8 @@ def parity_render(dev):
     tile_size=PARITY_TILE)``, held to the parity golden (mean |diff| < 0.08,
     correlation > 0.9) and to the fused golden as tests/test_reference_golden.py:119
     holds the two goldens (mean |diff| < 0.09, correlation > 0.945; its
-    lower bound on mean |diff| pins an offset of the parity golden, see
-    below), both downsampled by 8; then one
+    lower bound on mean |diff|, 0.05, pins an offset of the parity golden
+    and is read, not held, see below), both downsampled by 8; then one
     ``Renderer(engine="parity")`` render at its default tile."""
     import numpy as np
     import torch
@@ -2096,9 +2094,13 @@ def parity_render(dev):
     res["fused_golden_mad"], res["fused_golden_corr"] = _golden_relation(img, GOLDEN)
     # test_reference_golden.py:119 also pins mean|diff| > 0.05 between the two
     # goldens: the parity golden is brighter than the fused one (channel means
-    # below), an offset that the parity engine, the port's or JAX's on the
-    # CPU, does not make (ROADMAP queue C); the upper bound and the
+    # below).  The TPU made that offset: its default-precision f32 products
+    # round the operands of the parity engine's transforms to bfloat16
+    # (tests/parity_golden_witness.py; ROADMAP queue C), and the port's f32
+    # transforms do not, so the render does not meet that lower bound
+    # (fused_golden_offset_pinned, printed); the upper bound and the
     # correlation are held
+    res["fused_golden_offset_pinned"] = res["fused_golden_mad"] > 0.05
     check(res["fused_golden_mad"] < 0.09,
           f"mean|diff| vs the fused golden {res['fused_golden_mad']} < 0.09")
     check(res["fused_golden_corr"] > 0.945,
@@ -2311,42 +2313,12 @@ def _p3_inputs(rows: int, cols: int, dev):
     return x.to(dev), torch.tensor(BASES, dtype=torch.int32, device=dev)
 
 
-def _parent_argmin(parent: str):
-    """P3 of another checkout (``--p3-parent DIR``), built alone with the
-    same nvcc flags: a callable (x, bases) -> out on its C entry of that
-    tree, ``ptt_prof_argmin(x, rows, cols, bases, out, stream)``."""
-    import ctypes
-
-    import torch
-
-    from pathtracerap_tpu_torch.kernels import _build
-
-    src = os.path.join(parent, "pathtracerap_tpu_torch", "csrc", "prof_argmin.cu")
-    so = os.path.join(WORK, "p3_parent.so")
-    os.makedirs(WORK, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.FLAGS, "-shared", "-o", so, src], check=True,
-                   capture_output=True, text=True)
-    fn = ctypes.CDLL(so).ptt_prof_argmin
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.restype, fn.argtypes = i, [p, i, i, p, p, p]
-
-    def run(x, bases):
-        out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
-        err = fn(p(x.data_ptr()), i(x.shape[0]), i(x.shape[1]), p(bases.data_ptr()),
-                 p(out.data_ptr()), p(torch.cuda.current_stream(x.device).cuda_stream))
-        check(err == 0, f"the parent's P3 launched ({err})")
-        return out
-
-    return run
-
-
-def p3_vs_plain(dev, parent: str = None):
+def p3_vs_plain(dev):
     """P3 (csrc/prof_argmin.cu) bit-equal to its plain version at 512x512
-    (the script's shape) and 131,072x512, NaN and tie rows included, at
-    every rows-a-block choice (P3_WARPS) and on a misaligned x (the
-    strided path); device times of each choice, the launch floor (an empty
-    kernel on the same grid), torch.argmin alone, and with ``parent`` the
-    parent tree's P3 in turns (parent, this, this, parent, twice)."""
+    (the script's shape) and 131,072x512, NaN and tie rows included, and
+    on a misaligned x (the strided path); device times, the launch floor
+    (an empty kernel on P3's grid: one warp a row and a block) and
+    torch.argmin alone."""
     import ctypes
 
     import torch
@@ -2354,17 +2326,14 @@ def p3_vs_plain(dev, parent: str = None):
     from pathtracerap_tpu_torch.kernels import _build
     from pathtracerap_tpu_torch.kernels import prof as KP
 
-    res = {"warps": KP.ARGMIN_WARPS}
+    res = {}
     lib = _build.library()
-    parent_run = _parent_argmin(parent) if parent else None
     for rows, cols in P3_SHAPES:
         x, bases = _p3_inputs(rows, cols, dev)
         ref = KP.argmin_int_plain(x, bases)
-        r = {"rows": rows, "cols": cols, "max_abs_err": 0.0, "by_warps_ms": {}}
-        for wp in P3_WARPS:
-            check(bool(torch.equal(KP.argmin_int(x, bases, warps=wp), ref)),
-                  f"P3 exact at {rows}x{cols}, {wp} warps a block")
-            r["by_warps_ms"][wp] = cuda_ms(lambda wp=wp: KP.argmin_int(x, bases, warps=wp))
+        r = {"rows": rows, "cols": cols, "max_abs_err": 0.0}
+        check(KP.argmin_vec_path(x) and bool(torch.equal(KP.argmin_int(x, bases), ref)),
+              f"P3 exact at {rows}x{cols} (the float4 path)")
         xm = torch.empty(rows * cols + 1, device=dev)[1:].view(rows, cols)
         xm.copy_(x)
         check(not KP.argmin_vec_path(xm) and bool(torch.equal(KP.argmin_int(xm, bases), ref)),
@@ -2373,25 +2342,14 @@ def p3_vs_plain(dev, parent: str = None):
         r["ms"] = cuda_ms(lambda: KP.argmin_int(x, bases), host=r)
         r["plain_ms"] = cuda_ms(lambda: KP.argmin_int_plain(x, bases), lead=False)
         r["argmin_alone_ms"] = cuda_ms(lambda: torch.argmin(x, dim=1))
-        blocks = -(-rows // KP.ARGMIN_WARPS)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def noop():
-            _build.check(lib.ptt_noop(blocks, 32 * KP.ARGMIN_WARPS, ctypes.c_void_p(stream)),
-                         "ptt_noop")
+            _build.check(lib.ptt_noop(rows, 32, ctypes.c_void_p(stream)), "ptt_noop")
 
         r["launch_floor_ms"] = cuda_ms(noop)
         r.update(bound(2.0 * x.numel(), nbytes(x, bases, ref)))
         r["bound_share"] = r["bound_ms"] / r["ms"]
-        if parent_run is not None:
-            check(bool(torch.equal(parent_run(x, bases), ref)), "the parent's P3 exact")
-            reads = {"parent": [], "this": []}
-            for _ in range(2):
-                for who in ("parent", "this", "this", "parent"):
-                    fn = (lambda: parent_run(x, bases)) if who == "parent" else (
-                        lambda: KP.argmin_int(x, bases))
-                    reads[who].append(cuda_ms(fn))
-            r["turns_ms"] = reads
         res[f"{rows}x{cols}"] = r
     return res
 
@@ -2404,16 +2362,9 @@ def phase(name: str, res: dict) -> None:
     print(f"{name}: {json.dumps({**res, 'at_s': time.perf_counter() - _T0})}", flush=True)
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
-    ap.add_argument("--p3-parent", metavar="DIR",
-                    help="another checkout whose P3 (csrc/prof_argmin.cu) is timed beside "
-                         "this one's, in turns")
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2494,7 +2445,7 @@ def main(argv=None) -> int:
     phase("debug_vs_fast", debug_vs_fast(world, dev))
     pk = prof_kernels_vs_plain(dev)
     phase("prof_kernels_vs_plain", pk)
-    p3 = p3_vs_plain(dev, args.p3_parent)
+    p3 = p3_vs_plain(dev)
     phase("p3_vs_plain", p3)
     phase("resume_render", resume_render(dev))
     phase("metrics_and_profile", metrics_and_profile(dev))
@@ -2582,7 +2533,7 @@ def main(argv=None) -> int:
     p3s, p3l = p3["512x512"], p3["131072x512"]
     kernels.append(entry("prof_argmin", "prof_argmin.cu", "scripts/prof_r5_shade.py:96",
                          ps["launches"]["argmin_int"], p3s,
-                         extra={"warps": p3["warps"], "launch_floor_ms": p3s["launch_floor_ms"],
+                         extra={"launch_floor_ms": p3s["launch_floor_ms"],
                                 "argmin_alone_ms": p3s["argmin_alone_ms"],
                                 "rows131072_ms": p3l["ms"],
                                 "rows131072_bound_share": p3l["bound_share"]}))

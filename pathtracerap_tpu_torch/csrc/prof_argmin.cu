@@ -10,9 +10,10 @@
 //
 // What bounds it on the H100: the bytes, 4 a column read once; at the
 // scripts' 512 x 512 (1 MB, 0.3 us at 3.35 TB/s) a launch and one memory
-// round trip cost more than that.  The design: one warp a row, `Warps`
-// rows a thread block (the wrapper's ARGMIN_WARPS, chosen on the card), so
-// that 512 rows spread over the 132 SMs; the four bases loaded first, so
+// round trip cost more than that.  The design: one warp a row and a
+// thread block (fastest of 1, 2, 4 and 8 rows a block on the card at
+// both of the script's shapes), so that 512 rows spread over the 132 SMs;
+// the four bases loaded first, so
 // their latency hides under the row's; for 512 columns on a 16-byte
 // aligned row (the wrapper decides) every lane issues its four float4
 // loads before its first compare, then reduces lane-locally and across
@@ -39,15 +40,13 @@ __device__ __forceinline__ void take(float v, int i, float& bv, int& bi) {
   }
 }
 
-template <int Warps, bool Vec512>
-__global__ void __launch_bounds__(Warps * 32) argmin_int_kernel(const float* __restrict__ x,
-                                                                 int rows, int cols,
-                                                                 const int* __restrict__ bases,
-                                                                 int* __restrict__ out) {
+template <bool Vec512>
+__global__ void __launch_bounds__(32) argmin_int_kernel(const float* __restrict__ x, int cols,
+                                                        const int* __restrict__ bases,
+                                                        int* __restrict__ out) {
   const int b0 = __ldg(bases), b1 = __ldg(bases + 1), b2 = __ldg(bases + 2), b3 = __ldg(bases + 3);
-  const int row = blockIdx.x * Warps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;  // whole warps leave together
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x;
   float bv = INFINITY;
   int bi = INT_MAX;
   if (Vec512) {
@@ -82,38 +81,25 @@ __global__ void __launch_bounds__(Warps * 32) argmin_int_kernel(const float* __r
   }
 }
 
-template <int Warps>
-cudaError_t launch(const float* x, int rows, int cols, const int* bases, int* out, bool vec,
-                   cudaStream_t stream) {
-  const int blocks = (rows + Warps - 1) / Warps;
-  if (vec) {
-    argmin_int_kernel<Warps, true><<<blocks, Warps * 32, 0, stream>>>(x, rows, cols, bases, out);
-  } else {
-    argmin_int_kernel<Warps, false><<<blocks, Warps * 32, 0, stream>>>(x, rows, cols, bases, out);
-  }
-  return cudaGetLastError();
-}
-
 __global__ void noop_kernel() {}
 
 }  // namespace
 
-// vec: the 512-column float4 path (cols == 512, x 16-byte aligned); warps:
-// rows a thread block, 1, 2, 4 or 8.
+// vec: the 512-column float4 path (cols == 512, x 16-byte aligned).  One
+// thread block of one warp a row.
 extern "C" int ptt_prof_argmin(const float* x, int rows, int cols, const int* bases, int* out,
-                               int vec, int warps, void* stream) {
+                               int vec, void* stream) {
   if (rows == 0) return (int)cudaSuccess;
   if (cols <= 0) return (int)cudaErrorInvalidValue;
   if (vec && (cols != 512 || reinterpret_cast<size_t>(x) % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (warps) {
-    case 1: return (int)launch<1>(x, rows, cols, bases, out, vec, s);
-    case 2: return (int)launch<2>(x, rows, cols, bases, out, vec, s);
-    case 4: return (int)launch<4>(x, rows, cols, bases, out, vec, s);
-    case 8: return (int)launch<8>(x, rows, cols, bases, out, vec, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (vec) {
+    argmin_int_kernel<true><<<rows, 32, 0, s>>>(x, cols, bases, out);
+  } else {
+    argmin_int_kernel<false><<<rows, 32, 0, s>>>(x, cols, bases, out);
   }
+  return (int)cudaGetLastError();
 }
 
 // An empty kernel on `blocks` thread blocks of `threads`: the launch floor

@@ -60,7 +60,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_prof_parts_smem.restype = i
     lib.ptt_prof_parts_smem.argtypes = [i, i, i, p]
     lib.ptt_prof_argmin.restype = i
-    lib.ptt_prof_argmin.argtypes = [p, i, i, p, p, i, i, p]
+    lib.ptt_prof_argmin.argtypes = [p, i, i, p, p, i, p]
     lib.ptt_noop.restype = i
     lib.ptt_noop.argtypes = [i, i, p]
     lib.ptt_grid_dda.restype = i

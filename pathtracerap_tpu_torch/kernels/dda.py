@@ -22,9 +22,26 @@ from . import _build
 from .trace import _check
 
 
+# the scene's fields that G1 reads (the normal matrices derive from
+# model_to_world, the default indices of refraction from the model count)
+_SCENE_FIELDS = (
+    "world_to_model", "model_to_world", "model_mesh", "model_grid", "mesh_bbox_min",
+    "mesh_bbox_max", "grid_voxel_width", "grid_voxel_start", "voxel_tri_start",
+    "voxel_tri_count", "per_voxel_tris", "tri_vidx", "vertex_pos", "vertex_nrm", "mat_type",
+    "mat_color", "mat_refractive_index", "grid_dims",
+)
+
+
 def _scene_args(scene: SceneDevice, dev: torch.device):
-    """The kernel's scene tables, checked: (tensors in argument order,
-    the per-model normal matrices and indices of refraction made here)."""
+    """The kernel's scene tables in argument order, with the per-model
+    normal matrices and indices of refraction made here: checked and made
+    once a scene (held in ``scene.kernel_tables``), again only where one
+    of its fields was replaced or ``model_to_world`` written in place."""
+    stamp = (dev, scene.model_to_world._version)
+    sources = tuple(getattr(scene, f) for f in _SCENE_FIELDS)
+    held = scene.kernel_tables.get("grid_trace")
+    if held is not None and held[0] == stamp and all(a is b for a, b in zip(held[1], sources)):
+        return held[2]
     i = scene.num_models
     n_mesh = scene.mesh_bbox_min.shape[0]
     n_grid = scene.grid_voxel_width.shape[0]
@@ -58,7 +75,9 @@ def _scene_args(scene: SceneDevice, dev: torch.device):
     ]
     for name, x, dtype, shape in tables:
         _check(x, name, dtype, shape, dev)
-    return [x for _, x, _, _ in tables]
+    args = [x for _, x, _, _ in tables]
+    scene.kernel_tables["grid_trace"] = (stamp, sources, args)
+    return args
 
 
 def grid_trace(scene: SceneDevice, ro: torch.Tensor, rd: torch.Tensor, return_stats: bool = False):

@@ -50,7 +50,6 @@ PARTS_TILE = 512  # rays per thread block of the parts kernel (csrc/prof_parts.c
 PARTS_STAGE_BYTES = 32768  # operand bytes of one staged run (kStageBytes; mm_f32: half)
 SELECT_ROWS = 7  # attribute rows the select variant sums
 PLAIN_ROWS = 4096  # rays per chunk of the plain version
-ARGMIN_WARPS = 1  # rows a thread block of P3 (csrc/prof_argmin.cu), chosen on the card
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -318,10 +317,10 @@ def argmin_vec_path(x: torch.Tensor) -> bool:
     return x.shape[1] == 512 and x.data_ptr() % 16 == 0
 
 
-def argmin_int(x: torch.Tensor, bases: torch.Tensor, warps: int = ARGMIN_WARPS) -> torch.Tensor:
+def argmin_int(x: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """P3 (see :func:`argmin_int_plain`) on x (rows, cols) f32 and bases
-    (4,) int32.  Launches ``csrc/prof_argmin.cu`` for CUDA tensors, ``warps``
-    rows a thread block (counted in ``argmin_int.launches`` and, by path,
+    (4,) int32.  Launches ``csrc/prof_argmin.cu`` for CUDA tensors, one
+    warp a row (counted in ``argmin_int.launches`` and, by path,
     ``argmin_int.variant_launches``: ``"vec512"`` or ``"general"``), runs
     the plain version for CPU ones."""
     rows, cols = x.shape
@@ -332,14 +331,12 @@ def argmin_int(x: torch.Tensor, bases: torch.Tensor, warps: int = ARGMIN_WARPS) 
     dev = x.device
     _check(x, "x", torch.float32, (rows, cols), dev)
     _check(bases, "bases", torch.int32, (4,), dev)
-    if warps not in (1, 2, 4, 8):
-        raise ValueError(f"warps must be 1, 2, 4 or 8, got {warps}")
     vec = argmin_vec_path(x)
     out = torch.empty(rows, dtype=torch.int32, device=dev)
     err = _build.library().ptt_prof_argmin(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_int(rows), ctypes.c_int(cols),
         ctypes.c_void_p(bases.data_ptr()), ctypes.c_void_p(out.data_ptr()), ctypes.c_int(vec),
-        ctypes.c_int(warps), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_prof_argmin")
     argmin_int.launches += 1

@@ -174,6 +174,11 @@ class SceneDevice:
     # number of REAL instanced triangles (world_tri_src >= 0); the bake
     # uses it to drop pure-padding traversal blocks.  0 means unknown.
     n_world_valid: int = 0
+    # what a kernel wrapper derives from this scene once and reuses
+    # (kernels/dda.py: G1's checked tables); a scene made by replace()
+    # starts empty
+    kernel_tables: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                            compare=False)
 
     @property
     def num_models(self) -> int:

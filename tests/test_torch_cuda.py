@@ -1020,8 +1020,8 @@ def test_parity_render_on_the_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("rows", [512, 131072])
 def test_prof_argmin_kernel_nan_and_ties(dev, rows):
-    """P3 at the script's 512 x 512 and at 131,072 x 512, every rows-a-block
-    choice, rows with NaN (the first NaN wins), tied minima (the first
+    """P3 at the script's 512 x 512 and at 131,072 x 512 (the float4 path),
+    rows with NaN (the first NaN wins), tied minima (the first
     wins), all-equal rows, and other widths (the strided path)."""
     from pathtracerap_tpu_torch.kernels import prof as P
 
@@ -1036,10 +1036,9 @@ def test_prof_argmin_kernel_nan_and_ties(dev, rows):
     bases = torch.tensor([3, 9, 1, 7], dtype=torch.int32, device=dev)
     ref = P.argmin_int_plain(x, bases)
     assert ref[0].item() == 3 * 128 + 33 and ref[3].item() == 3 * 128 + 5
-    for warps in (1, 2, 4, 8):
-        before = dict(P.argmin_int.variant_launches)
-        assert torch.equal(P.argmin_int(x, bases, warps=warps), ref), warps
-        assert P.argmin_int.variant_launches["vec512"] == before.get("vec512", 0) + 1
+    n_vec = P.argmin_int.variant_launches["vec512"]
+    assert torch.equal(P.argmin_int(x, bases), ref)
+    assert P.argmin_int.variant_launches["vec512"] == n_vec + 1
     for cols in (1, 31, 200, 513):
         y = x[:, :cols].contiguous() if cols <= 512 else torch.cat([x, x[:, :1]], dim=1)
         assert torch.equal(P.argmin_int(y, bases), P.argmin_int_plain(y, bases)), cols
@@ -1047,8 +1046,7 @@ def test_prof_argmin_kernel_nan_and_ties(dev, rows):
 
 def test_prof_argmin_wrapper_checks(dev):
     """P3's wrapper: a misaligned x takes the strided path (and agrees); a
-    wrong dtype, shape, device or layout, or a rows-a-block choice the
-    kernel has not, raises."""
+    wrong dtype, shape, device or layout raises."""
     from pathtracerap_tpu_torch.kernels import prof as P
 
     x = torch.randn(512 * 512 + 1, device=dev)[1:].view(512, 512)
@@ -1065,5 +1063,3 @@ def test_prof_argmin_wrapper_checks(dev):
         P.argmin_int(x, bases.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         P.argmin_int(torch.randn(512, 1024, device=dev)[:, ::2], bases)
-    with pytest.raises(ValueError, match="warps"):
-        P.argmin_int(x, bases, warps=3)

@@ -180,6 +180,30 @@ def test_grid_trace_on_the_cpu_is_the_plain_version(scenes):
         grid_trace(ps, ro.to("meta"), rd.to("meta"))
 
 
+def test_grid_trace_scene_tables_made_once_a_scene(scenes):
+    """G1's checked scene tables and normal matrices are made on a scene's
+    first trace and reused; a scene made by ``replace`` or a
+    ``model_to_world`` written in place gets them anew, and the checks
+    still refuse a wrong table."""
+    from pathtracerap_tpu_torch.kernels.dda import _scene_args
+
+    cpu = torch.device("cpu")
+    _, base = scenes["cornell"]
+    ps = base.replace(model_to_world=base.model_to_world.clone())
+    first = _scene_args(ps, cpu)
+    assert _scene_args(ps, cpu) is first
+    assert torch.equal(first[2], PI.normal_matrix(ps.model_to_world))
+    other = ps.replace(mat_color=ps.mat_color.clone())
+    assert not other.kernel_tables and _scene_args(other, cpu) is not first
+    assert _scene_args(ps, cpu) is first
+    ps.model_to_world.mul_(2.0)
+    again = _scene_args(ps, cpu)
+    assert again is not first
+    assert torch.equal(again[2], PI.normal_matrix(ps.model_to_world))
+    with pytest.raises(ValueError, match="expected"):
+        _scene_args(ps.replace(mat_type=ps.mat_type.long()), cpu)
+
+
 def test_render_sample_parity_matches_jax_and_oracle(scenes):
     """tests/test_render_golden.py:36's parity case on the port: one sample
     of 5 bounces at 48x32 against JAX's render_sample (atol 1e-5) and the
