@@ -33,13 +33,20 @@ and read just after:
   701 blocks; and small per-bounce renders and a default step on the card
   held against CPU tensors;
 * the parity DDA engine (kernel G1, ``csrc/grid_dda.cu``): G1 against its
-  plain version on the 1000x800 primary and bounce-1 wavefronts and on
-  rays that start inside the models' boxes with zero direction
-  components, every field and stat bit-equal; the reference scene at
-  1000x800, 2 spp, 5 bounces through ``render_accumulate(engine="parity")``
-  against ``assets/golden/reference_scene_parity.bmp`` and one
-  ``Renderer(engine="parity")`` render; ``render_aovs`` and
-  ``write_aov_bmps`` at 1000x800; and the suite's ``gridparity`` row;
+  plain version on the 1000x800 primary and bounce-1 wavefronts (the
+  bounce with its liveness mask), on rays that start inside the models'
+  boxes with zero direction components, on wavefronts with no live ray
+  and with one, and in its global-memory form on the highpoly blob, every
+  field, stat, model and triangle bit-equal; a 200x160 parity render
+  through G1 and through the plain version, bit-equal; the reference
+  scene at 1000x800, 2 spp, 5 bounces through
+  ``render_accumulate(engine="parity")`` against
+  ``assets/golden/reference_scene_parity.bmp``, the fused golden and the
+  f32 parity golden, and one ``Renderer(engine="parity")`` render; the
+  parity train step (``make_train_step(engine="parity")``) at the same
+  size, its quality-mode gradient and a small step against CPU tensors;
+  ``render_aovs`` and ``write_aov_bmps`` at 1000x800; and the suite's
+  ``gridparity`` row;
 * kernels 1, 2 and 4 in their debug form (``PTAP_DEBUG=1``)
   against their fast form at the main paths' shapes and on degenerate
   rays; the profiling kernels P1 to P4 (``csrc/prof_parts.cu``,
@@ -161,8 +168,17 @@ RESUME_SPP, RESUME_CHUNK = 8, 4
 # 1000x800 (tests/test_reference_golden.py:119), drawn per 2048-ray RNG tile
 # (scripts/make_golden_parity.py's default)
 PARITY_GOLDEN = os.path.join(ROOT, "assets", "golden", "reference_scene_parity.bmp")
+# the same render by the JAX package's parity engine on the CPU in f32
+# (tests/make_parity_golden_f32.py): the port's f32 render lands on it
+PARITY_F32_GOLDEN = os.path.join(ROOT, "assets", "golden", "reference_scene_parity_f32.bmp")
+F32_GOLDEN_MAD, F32_GOLDEN_CORR = 0.005, 0.999
 PARITY_SPP, PARITY_TILE = 2, 2048
+PARITY_SMALL_RES = (200, 160)  # the render held bit for bit, G1 against the plain version
 DDA_PLAIN_RAYS = 65536  # rays of a wavefront the plain version traces beside G1
+# G1's global-memory form: the 146,688-triangle blob alone under 25^3 voxels
+# (up to 2,613 triangles a voxel, which the plain version gathers for every ray)
+HIGHPOLY_MESH = os.path.join(ROOT, "assets", "meshes", "highpoly_blob.obj")
+HIGHPOLY_RAYS = 2048
 # per triangle test (Moeller-Trumbore): 6 edge subtractions, two crosses 12,
 # four dots 12, 3 tvec, the division 1, three scalings 3, the accept chain
 # 8 (|det|, 5 compares, u + v, the and) and the argmin's compare 2
@@ -2105,10 +2121,18 @@ def parity_render(dev):
           f"mean|diff| vs the fused golden {res['fused_golden_mad']} < 0.09")
     check(res["fused_golden_corr"] > 0.945,
           f"correlation vs the fused golden {res['fused_golden_corr']} > 0.945")
+    # the same render by JAX's parity engine in f32 on the CPU: the render
+    # lands on it (the BMP's 8-bit rounding is far below these bounds)
+    res["f32_golden_mad"], res["f32_golden_corr"] = _golden_relation(img, PARITY_F32_GOLDEN)
+    check(res["f32_golden_mad"] < F32_GOLDEN_MAD,
+          f"mean|diff| vs the f32 parity golden {res['f32_golden_mad']} < {F32_GOLDEN_MAD}")
+    check(res["f32_golden_corr"] > F32_GOLDEN_CORR,
+          f"correlation vs the f32 parity golden {res['f32_golden_corr']} > {F32_GOLDEN_CORR}")
     res["channel_means"] = {
         "render": img.mean(axis=(0, 1)).tolist(),
-        "parity_golden": (read_bmp(PARITY_GOLDEN).astype(np.float32) / 255.0).mean(axis=(0, 1)).tolist(),
-        "fused_golden": (read_bmp(GOLDEN).astype(np.float32) / 255.0).mean(axis=(0, 1)).tolist(),
+        **{name: (read_bmp(path).astype(np.float32) / 255.0).mean(axis=(0, 1)).tolist()
+           for name, path in (("parity_golden", PARITY_GOLDEN), ("fused_golden", GOLDEN),
+                              ("f32_parity_golden", PARITY_F32_GOLDEN))},
     }
 
     cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=PARITY_SPP,
@@ -2136,6 +2160,126 @@ def parity_render(dev):
     return res
 
 
+def parity_small_vs_plain(dev):
+    """The parity render at PARITY_SMALL_RES, PARITY_SPP spp, 5 bounces on
+    the card twice: through G1 (``_make_tracer(engine="parity")``) and
+    through the plain version (a tracer calling ``trace_parity`` on the
+    same CUDA tensors), bit for bit."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_reference_scene
+    from pathtracerap_tpu_torch.ops.intersect import trace_parity
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+    from pathtracerap_tpu_torch.render.wavefront import _make_tracer, _render_tile
+
+    scene = build_reference_scene().to_device(dev)
+    ro, rd = generate_rays(CameraConfig(), PARITY_SMALL_RES, device=dev)
+
+    def render(tracer):
+        return _render_tile(tracer, ro, rd, 0, prng_key(0, dev), PARITY_SPP, MAX_BOUNCES, True,
+                            tile_size=PARITY_TILE)
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    kern = render(_make_tracer(scene, "parity"))
+    torch.cuda.synchronize()
+    res = {"resolution": PARITY_SMALL_RES, "spp": PARITY_SPP, "bounces": MAX_BOUNCES,
+           "g1_s": time.perf_counter() - t0, **_counts()}
+    t0 = time.perf_counter()
+    plain = render(lambda o, d, alive=None: trace_parity(scene, o.contiguous(), d.contiguous(),
+                                                         alive=alive))
+    torch.cuda.synchronize()
+    res["plain_s"] = time.perf_counter() - t0
+    res["bit_equal"] = bool(torch.equal(kern.view(torch.int32), plain.view(torch.int32)))
+    res["mean"] = kern.mean().item() / PARITY_SPP
+    check(res["grid_dda_launches"] == 1 + PARITY_SPP * (MAX_BOUNCES - 1) and res["plain_calls"] == 0,
+          "the small render through G1 alone")
+    check(res["bit_equal"], "the small parity render through G1 equals it through the plain version")
+    return res
+
+
+def parity_train_step(dev):
+    """The parity engine's backward on the card (``engine="parity"``: G1
+    traces, the winner's attributes gathered under autograd): one
+    ``make_train_step`` of the mat_color loss at the parity render's
+    1000x800, PARITY_SPP spp, 5 bounces (a warm-up, then a timed step), the
+    mat_color and model_to_world gradient in quality mode at the same
+    size, and a step at SMALL_RES on the card against the same step on
+    CPU tensors (loss LOSS_RTOL, gradient GRAD_RTOL)."""
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, build_reference_scene
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad, make_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+
+    scene = build_reference_scene().to_device(dev)
+    n = RESOLUTION[0] * RESOLUTION[1]
+    target = torch.zeros((n, 3), device=dev)
+    lr = 0.05
+    step = make_train_step(scene, CameraConfig(), RESOLUTION, PARITY_SPP, MAX_BOUNCES, lr=lr,
+                           tile_size=PARITY_TILE, engine="parity")
+    params = extract_params(scene, ("mat_color",))
+    step(params, target, prng_key(0, dev))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, new = step(params, target, prng_key(0, dev))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = 1 + PARITY_SPP * (MAX_BOUNCES - 1)
+    res = {"resolution": RESOLUTION, "spp": PARITY_SPP, "bounces": MAX_BOUNCES, "step_s": dt,
+           "fwd_bwd_mrays_per_s": n * PARITY_SPP * MAX_BOUNCES / dt / 1e6, "loss": loss.item(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **_counts()}
+    res.update(_grad_stats((params["mat_color"] - new["mat_color"]) / lr))
+    check(res["grid_dda_launches"] == launches and res["plain_calls"] == 0,
+          f"the parity step launched G1 {launches} times and no plain version")
+    check(math.isfinite(res["loss"]) and res["loss"] > 0, f"loss {res['loss']} finite and > 0")
+    check(res["grad_finite"] and res["grad_nonzero"] > 0, "mat_color gradient finite and nonzero")
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    q_loss, q_grads = loss_and_grad(
+        extract_params(scene, ("mat_color", "model_to_world")), scene, target, prng_key(0, dev),
+        CameraConfig(), RESOLUTION, PARITY_SPP, MAX_BOUNCES, tile_size=PARITY_TILE,
+        engine="parity", parity=False)
+    torch.cuda.synchronize()
+    q = {"step_s": time.perf_counter() - t0, "loss": q_loss.item(), **_counts()}
+    for k, g in q_grads.items():
+        q[k] = _grad_stats(g)
+    check(q["grid_dda_launches"] == launches and q["plain_calls"] == 0, "quality: G1 alone")
+    check(q["mat_color"]["grad_finite"] and q["mat_color"]["grad_nonzero"] > 0
+          and q["model_to_world"]["grad_finite"] and q["model_to_world"]["grad_nonzero"] > 0,
+          f"quality gradients finite and nonzero: {q}")
+    res["quality"] = q
+
+    def small(d, parity):
+        sc = build_reference_scene().to_device(d)
+        m = SMALL_RES[0] * SMALL_RES[1]
+        return loss_and_grad(
+            extract_params(sc, ("mat_color", "model_to_world")), sc,
+            torch.full((m, 3), 0.25, device=d), prng_key(1, d), CameraConfig(), SMALL_RES,
+            SMALL_SPP, SMALL_BOUNCES, tile_size=PARITY_TILE, engine="parity", parity=parity)
+
+    for parity in (True, False):
+        _zero_counts()
+        l_g, g_g = small(dev, parity)
+        counts = _counts()
+        l_c, g_c = small(torch.device("cpu"), parity)
+        key = "vs_cpu" if parity else "vs_cpu_quality"
+        res[key] = {"loss_gpu": l_g.item(), "loss_cpu": l_c.item(),
+                    "loss_rel": abs(l_g.item() - l_c.item()) / abs(l_c.item()),
+                    **{f"{k}_max_abs": (g_g[k].cpu() - g_c[k]).abs().max().item() for k in g_c},
+                    **counts}
+        check(counts["grid_dda_launches"] > 0 and counts["plain_calls"] == 0, "G1 on the card")
+        check(res[key]["loss_rel"] <= LOSS_RTOL, f"{key}: loss rel {res[key]['loss_rel']}")
+        for k in g_c:
+            check(bool(torch.allclose(g_g[k].cpu(), g_c[k], rtol=GRAD_RTOL, atol=1e-7)),
+                  f"{key}: {k} gradient within rtol {GRAD_RTOL}")
+    return res
+
+
 def _hit_fields_equal(a, b) -> dict:
     """Per field, the share of rays on which two hit records (and their
     stats) are bit-equal."""
@@ -2143,7 +2287,7 @@ def _hit_fields_equal(a, b) -> dict:
 
     (ra, sa), (rb, sb) = a, b
     out = {}
-    for f in ("t", "normal", "mat_type", "mat_color", "mat_ri"):
+    for f in ("t", "normal", "mat_type", "mat_color", "mat_ri", "model", "tri"):
         x, y = getattr(ra, f), getattr(rb, f)
         eq = x.view(torch.int32) == y.view(torch.int32)
         out[f] = (eq.all(dim=-1) if eq.dim() > 1 else eq).float().mean().item()
@@ -2181,21 +2325,71 @@ def _odd_rays(host, dev, n: int = 8192):
     return (torch.as_tensor(o, device=dev).contiguous(), torch.as_tensor(d, device=dev).contiguous())
 
 
+def _g1_resources() -> dict:
+    """ptxas's registers, spills and static shared memory of G1's four
+    forms, ``grid_dda_kernel<shared, coherent>``: "shared" (tables in
+    shared memory) or "global", and "coherent" (the primaries' form) or
+    "bounce"."""
+    from pathtracerap_tpu_torch.kernels import _build
+
+    kr = {}
+    for key, v in _build.kernel_resources().items():
+        m = re.search(r"grid_dda_kernelILb([01])ELb([01])E", key)
+        if m:
+            kr[f"{'shared' if m.group(1) == '1' else 'global'}/"
+               f"{'coherent' if m.group(2) == '1' else 'bounce'}"] = v
+    check(len(kr) == 4, f"G1's four forms in the build: {sorted(kr)}")
+    return kr
+
+
+def highpoly_grid_scene():
+    """The highpoly blob alone under SceneBuilder(grid_dims=(25, 25, 25)):
+    146,688 triangles, 225,554 bucket entries, up to 2,613 a voxel; its
+    (v0, e1, e2) table, 5.3 MB, takes G1's global-memory form."""
+    from pathtracerap_tpu_torch.scene.build import SceneBuilder
+    from pathtracerap_tpu_torch.scene.types import Material, MaterialType
+
+    b = SceneBuilder(grid_dims=(25, 25, 25))
+    b.add_instance(b.add_mesh_file(HIGHPOLY_MESH), Material(MaterialType.DIFFUSE, (0.8, 0.3, 0.2)))
+    return b.build()
+
+
+def _rays_at_box(host, dev, n: int, seed: int = 11):
+    """n rays from a sphere around the first mesh's box toward points
+    inside it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lo, hi = host.mesh_bbox_min[0], host.mesh_bbox_max[0]
+    centre, radius = (lo + hi) / 2, 2.0 * float(np.linalg.norm(hi - lo))
+    o = rng.normal(size=(n, 3))
+    o = centre + radius * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = lo + rng.uniform(size=(n, 3)) * (hi - lo) - o
+    return (torch.as_tensor(o.astype(np.float32), device=dev).contiguous(),
+            torch.as_tensor(d.astype(np.float32), device=dev).contiguous())
+
+
 def dda_vs_plain(dev):
     """Kernel G1 against its plain version (ops/intersect.trace_parity) on
-    the card, with stats: on DDA_PLAIN_RAYS rays drawn across the 1000x800
-    primary wavefront and across its bounce-1 wavefront (the parity
-    render's uniforms), and on rays that start inside the models' boxes
-    with zero direction components.  t, normal, mat_type, mat_color,
-    mat_ri, steps and tri_tests bit-equal on every ray.  Then G1's device
-    time on the whole primary and bounce-1 wavefronts (800,000 rays), the
-    plain version's on DDA_PLAIN_RAYS, and the bound from the kernel's own
-    counters: tri_tests x MT_FLOPS + steps x DDA_STEP_FLOPS operations, or
-    the bytes read and written, whichever is larger."""
+    the card, with stats, every field (the winning model and triangle
+    too) bit-equal on every ray: on DDA_PLAIN_RAYS rays drawn across the
+    1000x800 primary wavefront and across its bounce-1 wavefront (the
+    parity render's uniforms, with its liveness mask), on rays that start
+    inside the models' boxes with zero direction components (all live, and
+    half of them), on a wavefront with no live ray and on one with a
+    single live ray, and in the global-memory form on HIGHPOLY_RAYS rays
+    at the highpoly blob.  Then G1's device time on the whole primary and
+    bounce-1 wavefronts (800,000 rays; bounce 1 also with every ray
+    traced, as before live rays only), the plain version's on
+    DDA_PLAIN_RAYS, the time of gathering mat_type, mat_color and mat_ri
+    from the model index in the wrapper (the alternative to the kernel
+    writing them), and the bound from the kernel's own counters on the
+    live rays: tri_tests x MT_FLOPS + steps x DDA_STEP_FLOPS operations,
+    or the bytes read and written, whichever is larger."""
     import torch
 
     from pathtracerap_tpu_torch import CameraConfig, build_reference_scene
-    from pathtracerap_tpu_torch.kernels import _build
     from pathtracerap_tpu_torch.kernels import dda as DD
     from pathtracerap_tpu_torch.ops.intersect import trace_parity
     from pathtracerap_tpu_torch.ops.rng import chunk_uniforms, prng_key
@@ -2210,38 +2404,101 @@ def dda_vs_plain(dev):
     hits0 = DD.grid_trace(scene, ro, rd)
     u = chunk_uniforms(prng_key(0, dev), 0, MAX_BOUNCES, n, n, 0, rng_tile=PARITY_TILE)
     st = shade(RayState.primary(ro, rd, MAX_BOUNCES), hits0, u[:, :4])
-    wavefronts = {"primary": (ro, rd), "bounce1": (st.orig.contiguous(), st.dir.contiguous())}
+    wavefronts = {"primary": (ro, rd, None),
+                  "bounce1": (st.orig.contiguous(), st.dir.contiguous(), st.remaining > 0)}
     pick = torch.arange(0, n, n // DDA_PLAIN_RAYS, device=dev)[:DDA_PLAIN_RAYS]
-    res = {"rays": n, "plain_rays": DDA_PLAIN_RAYS}
-    scene_bytes = nbytes(*DD._scene_args(scene, dev))
-    for name, (o, d) in wavefronts.items():
-        o_s, d_s = o[pick].contiguous(), d[pick].contiguous()
-        eq = _hit_fields_equal(DD.grid_trace(scene, o_s, d_s, return_stats=True),
-                               trace_parity(scene, o_s, d_s, return_stats=True))
+    res = {"rays": n, "plain_rays": DDA_PLAIN_RAYS, "form": DD.grid_trace_form(scene)}
+    check(res["form"]["shared"], "the reference scene's tables fit in shared memory")
+    tables = DD._scene_args(scene, dev)
+    scene_bytes = nbytes(*(tables[k] for k in ("models", "tris", "tri_nrm", "voxel", "vt_tris")))
+
+    def both(o, d, alive=None):
+        return (DD.grid_trace(scene, o, d, alive=alive, return_stats=True),
+                trace_parity(scene, o, d, return_stats=True, alive=alive))
+
+    for name, (o, d, alive) in wavefronts.items():
+        a_s = None if alive is None else alive[pick]
+        eq = _hit_fields_equal(*both(o[pick].contiguous(), d[pick].contiguous(), a_s))
         check(all(v == 1.0 for v in eq.values()), f"G1 equals its plain version on {name}: {eq}")
-        rec, stats = DD.grid_trace(scene, o, d, return_stats=True)
-        r = {"equal_share": eq, "max_abs_err": 0.0, "hits": (rec.t < F_MAX).float().mean().item(),
+        rec, stats = DD.grid_trace(scene, o, d, alive=alive, return_stats=True)
+        live = n if alive is None else int(alive.sum().item())
+        r = {"live_rays": live, "equal_share": eq, "max_abs_err": 0.0,
+             "hits": (rec.t < F_MAX).float().mean().item(),
              "steps": int(stats["steps"].sum().item()),
              "tri_tests": int(stats["tri_tests"].sum().item())}
-        r["ms"] = cuda_ms(lambda: DD.grid_trace(scene, o, d), host=r)
-        r["with_stats_ms"] = cuda_ms(lambda: DD.grid_trace(scene, o, d, return_stats=True))
-        r["plain_ms"] = cuda_ms(lambda: trace_parity(scene, o_s, d_s), 2, lead=False)
-        # each ray's origin and direction read once, its hit record written once
-        io_bytes = nbytes(o, d, rec.t, rec.normal, rec.mat_type, rec.mat_color, rec.mat_ri)
+        r["ms"] = cuda_ms(lambda: DD.grid_trace(scene, o, d, alive=alive), host=r)
+        if alive is not None:
+            # every ray traced, in the same (bounce) form: the live-only gain
+            every = torch.ones_like(alive)
+            r["all_rays_ms"] = cuda_ms(lambda: DD.grid_trace(scene, o, d, alive=every))
+        r["with_stats_ms"] = cuda_ms(lambda: DD.grid_trace(scene, o, d, alive=alive,
+                                                           return_stats=True))
+        o_s, d_s = o[pick].contiguous(), d[pick].contiguous()
+        r["plain_ms"] = cuda_ms(lambda: trace_parity(scene, o_s, d_s, alive=a_s), 2, lead=False)
+        hit, idx = rec.model >= 0, rec.model.clamp(min=0).long()
+        ri = tables["models"][:, 47]  # MODEL_WORDS' index of refraction
+        r["gather_attrs_ms"] = cuda_ms(lambda: (
+            torch.where(hit, scene.mat_type[idx], 0),
+            torch.where(hit[:, None], scene.mat_color[idx], 0.0), torch.where(hit, ri[idx], 1.5)))
+        # the live rays' origin and direction read once, the mask read, every
+        # ray's record written once
+        io_bytes = (24 * live + (0 if alive is None else n)
+                    + nbytes(rec.t, rec.normal, rec.mat_type, rec.mat_color, rec.mat_ri, rec.model,
+                             rec.tri))
         r.update(bound(MT_FLOPS * r["tri_tests"] + DDA_STEP_FLOPS * r["steps"],
                        io_bytes + scene_bytes))
         r["bound_share"] = r["bound_ms"] / r["ms"]
         res[name] = r
+
     o, d = _odd_rays(host, dev)
-    eq = _hit_fields_equal(DD.grid_trace(scene, o, d, return_stats=True),
-                           trace_parity(scene, o, d, return_stats=True))
-    check(all(v == 1.0 for v in eq.values()), f"G1 equals its plain version inside the boxes: {eq}")
-    res["inside_zero_dirs"] = {"rays": o.shape[0], "equal_share": eq,
-                               "hits": (DD.grid_trace(scene, o, d).t < F_MAX).float().mean().item()}
-    kr = [v for key, v in _build.kernel_resources().items() if "grid_dda_kernel" in key]
-    check(len(kr) == 1, "one grid_dda_kernel in the build")
-    res.update(registers=kr[0]["registers"], spill_stores=kr[0]["spill_stores"],
-               spill_loads=kr[0]["spill_loads"])
+    half = torch.arange(o.shape[0], device=dev) % 2 == 0
+    for name, alive in (("inside_zero_dirs", None), ("inside_zero_dirs_half_live", half)):
+        eq = _hit_fields_equal(*both(o, d, alive))
+        check(all(v == 1.0 for v in eq.values()), f"G1 equals its plain version, {name}: {eq}")
+        res[name] = {"rays": o.shape[0], "equal_share": eq,
+                     "hits": (DD.grid_trace(scene, o, d, alive=alive).t < F_MAX).float().mean().item()}
+    o, d, _ = wavefronts["bounce1"]
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    (rec, stats), plain = both(o[pick].contiguous(), d[pick].contiguous(), none[pick])
+    eq = _hit_fields_equal((rec, stats), plain)
+    check(all(v == 1.0 for v in eq.values()) and bool((rec.t == F_MAX).all() and (rec.model == -1).all() and (rec.mat_ri == 1.5).all()
+               and (stats["steps"] == 0).all() and (stats["tri_tests"] == 0).all()),
+          "a wavefront with no live ray: every record the miss, no work")
+    one = none.clone()
+    one[n // 2 + 17] = True
+    eq = _hit_fields_equal(*both(o, d, one))
+    check(all(v == 1.0 for v in eq.values()), f"G1 equals its plain version, one live ray: {eq}")
+    res["dead"] = {"ms": cuda_ms(lambda: DD.grid_trace(scene, o, d, alive=none))}
+    res["one_live"] = {"equal_share": eq, "ms": cuda_ms(lambda: DD.grid_trace(scene, o, d, alive=one))}
+
+    t0 = time.perf_counter()
+    big_host = highpoly_grid_scene()
+    big = big_host.to_device(dev)
+    hp = {"build_s": time.perf_counter() - t0, "triangles": int(big_host.tri_vidx.shape[0]),
+          "bucket_entries": int(big_host.per_voxel_tris.shape[0]),
+          "max_bucket": int(big_host.voxel_tri_count.max()), "form": DD.grid_trace_form(big),
+          "table_bytes": DD._scene_args(big, dev)["smem_bytes"]}
+    check(not hp["form"]["shared"], "the highpoly blob takes the global-memory form")
+    o, d = _rays_at_box(big_host, dev, HIGHPOLY_RAYS)
+    # both of its forms: every ray live (the primaries' form) and half of them
+    for name, alive in (("equal_share", None),
+                        ("equal_share_half_live", torch.arange(o.shape[0], device=dev) % 2 == 0)):
+        (kb, ks), (pb, ps) = (DD.grid_trace(big, o, d, alive=alive, return_stats=True),
+                              trace_parity(big, o, d, return_stats=True, alive=alive))
+        hp[name] = _hit_fields_equal((kb, ks), (pb, ps))
+        check(all(v == 1.0 for v in hp[name].values()),
+              f"G1's global-memory form equals its plain version: {name} {hp[name]}")
+        if alive is None:
+            hp.update(rays=HIGHPOLY_RAYS, hits=(kb.t < F_MAX).float().mean().item(),
+                      tri_tests=int(ks["tri_tests"].sum().item()),
+                      ms=cuda_ms(lambda: DD.grid_trace(big, o, d)))
+    res["highpoly"] = hp
+    del big, big_host
+    torch.cuda.empty_cache()
+    kr = _g1_resources()
+    res.update(registers=max(v["registers"] for v in kr.values()),
+               spill_stores=max(v["spill_stores"] for v in kr.values()),
+               spill_loads=max(v["spill_loads"] for v in kr.values()), forms=kr)
     return res
 
 
@@ -2438,8 +2695,10 @@ def main() -> int:
     phase("pallas_vs_cpu", pallas_vs_cpu(dev))
     g1 = dda_vs_plain(dev)
     phase("dda_vs_plain", g1)
+    phase("parity_small_vs_plain", parity_small_vs_plain(dev))
     pr = parity_render(dev)
     phase("parity_render", pr)
+    phase("parity_train_step", parity_train_step(dev))
     phase("aovs", aovs(dev))
     phase("gridparity", gridparity(dev))
     phase("debug_vs_fast", debug_vs_fast(world, dev))
@@ -2542,10 +2801,17 @@ def main() -> int:
     kernels.append(entry("grid_dda", "grid_dda.cu",
                          "pathtracerap_tpu/ops/intersect.py:276 (XLA; no pallas_call)",
                          pr["grid_dda_launches"], g1["primary"],
-                         extra={"bounce1_ms": g1["bounce1"]["ms"],
+                         extra={"bound_share": g1["primary"]["bound_share"],
+                                "bounce1_ms": g1["bounce1"]["ms"],
                                 "bounce1_bound_ms": g1["bounce1"]["bound_ms"],
+                                "bounce1_bound_share": g1["bounce1"]["bound_share"],
+                                "bounce1_live_rays": g1["bounce1"]["live_rays"],
+                                "bounce1_all_rays_ms": g1["bounce1"]["all_rays_ms"],
                                 "plain_rays": g1["plain_rays"], "registers": g1["registers"],
-                                "spill_stores": g1["spill_stores"]}))
+                                "spill_stores": g1["spill_stores"],
+                                "smem_bytes": g1["form"]["smem_bytes"],
+                                "blocks_per_sm": g1["form"]["blocks_per_sm"],
+                                "highpoly_global_form_ms": g1["highpoly"]["ms"]}))
     for k in kernels:
         check(k["ms"] >= k["bound_ms"], f"{k['name']}: {k['ms']} ms not below its bound {k['bound_ms']}")
     print(json.dumps({"kernels": kernels}), flush=True)

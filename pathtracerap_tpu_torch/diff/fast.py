@@ -20,13 +20,16 @@ backward of its own.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import constants
 from ..kernels import megakernel as MK
 from ..kernels.trace import RAY_TILE, _slab_margin, ray_vectors, trace_pallas
-from ..ops.intersect import HitRecord
+from ..ops.intersect import HitRecord, averaged_normal, normal_matrix
+from ..ops.intersect import normalize as intersect_normalize
 from ..ops.math import cross3, dot3, normalize, normalize_guarded
 from ..ops.rng import chunk_uniforms
 from ..render.shade import RayState, gather_contribution, shade
@@ -97,6 +100,36 @@ def hit_from_index(
         geom_normal=torch.where(h3, normalize_guarded(cross3(e1, e2)), 0.0),
         mat_ri=torch.where(hit, world.mat_ri[idx], 1.5),
     )
+
+
+def parity_hit_from_model(scene, rec: HitRecord, with_normal: bool) -> HitRecord:
+    """The parity engine's hit record with its attributes gathered under
+    autograd from the winner the trace froze (``rec.model``, ``rec.tri``;
+    -1 where none): ``mat_color`` from the winning model's row, and with
+    ``with_normal`` (quality mode, where the cosine factor reads it) the
+    world normal, the winning model's normal matrix of ``model_to_world``
+    applied to the averaged vertex normal of its triangle.  The values are
+    the trace's, operation for operation (:func:`..ops.intersect.trace_parity`);
+    lanes without a winner (or whose winner set no triangle, a NaN t) keep
+    the trace's values and gather model 0 and a unit normal, so that no
+    NaN of an unused branch reaches the gradient."""
+    hit = rec.model >= 0
+    h3 = hit[:, None]
+    idx = rec.model.clamp(min=0).long()
+    color = torch.where(h3, _IndexAddGather.apply(scene.mat_color, idx), rec.mat_color)
+    normal = rec.normal
+    if with_normal:
+        nm = _IndexAddGather.apply(normal_matrix(scene.model_to_world).reshape(-1, 9), idx)
+        nm = nm.reshape(-1, 3, 3)
+        has_tri = rec.tri >= 0
+        n_model = averaged_normal(scene.vertex_nrm, scene.tri_vidx[rec.tri.clamp(min=0)].long())
+        n_model = torch.where(has_tri[:, None], n_model, n_model.new_tensor([1.0, 0.0, 0.0]))
+        # intersect.mat3_apply with a matrix a ray
+        acc = n_model[:, 0:1] * nm[:, :, 0]
+        acc = torch.addcmul(acc, n_model[:, 1:2], nm[:, :, 1])
+        world_n = intersect_normalize(torch.addcmul(acc, n_model[:, 2:3], nm[:, :, 2]))
+        normal = torch.where(h3 & has_tri[:, None], world_n, rec.normal)
+    return dataclasses.replace(rec, mat_color=color, normal=normal)
 
 
 def replay(world, ro_p, rd_p, idxs, u, max_bounces: int, parity: bool) -> torch.Tensor:

@@ -10,12 +10,15 @@ image is the mean of per-sample ``sqrt`` tone-mapped throughputs.
 
 Parameters are plain dicts of tensors (``extract_params``); a train step
 is :func:`loss_and_grad` (``torch.autograd.grad``) and the update
-``p - lr * g``.  Three diff engines: ``pallas`` (the default), the
+``p - lr * g``.  Four diff engines: ``pallas`` (the default), the
 per-bounce engine of :mod:`..render.wavefront` tracing through
 :func:`.fast.trace_pallas_diff`; ``mxu``, the same engine differentiated
-straight through :func:`..ops.plucker.trace_mxu`; and ``fused``, the
-binned deferred-trace forward of :mod:`.fast` (or on single-block scenes
-its fused ``emit_idx`` forward), which falls back to ``pallas`` on a world
+straight through :func:`..ops.plucker.trace_mxu`; ``parity``, the same
+engine on the grid DDA (kernel G1), whose material colour (and in quality
+mode world normal) is gathered from the traced winner
+(:func:`.fast.parity_hit_from_model`); and ``fused``, the binned
+deferred-trace forward of :mod:`.fast` (or on single-block scenes its
+fused ``emit_idx`` forward), which falls back to ``pallas`` on a world
 without a fused pack.
 """
 
@@ -25,13 +28,16 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from ..kernels.dda import grid_trace
 from ..kernels.megakernel import BINNED_SLAB_TILES, FUSED_SLAB_TILES
 from ..ops.plucker import bake_world_triangles, trace_mxu
 from ..ops.rng import RNG_TILE
 from ..render.camera import generate_rays
 from ..render.wavefront import _make_tracer, _render_tile
 from ..scene.types import SceneDevice
-from .fast import binned_forward_active, render_samples_fused_diff, trace_pallas_diff
+from .fast import (
+    binned_forward_active, parity_hit_from_model, render_samples_fused_diff, trace_pallas_diff,
+)
 
 DEFAULT_PARAMS: Tuple[str, ...] = ("mat_color",)
 DEFAULT_DIFF_ENGINE = "pallas"
@@ -67,12 +73,8 @@ def render_for_params(
     ``fused``, of ``tile_size`` rays for the per-bounce ``pallas`` and
     ``mxu``.  ``parity=False`` enables the quality-mode cosine throughput
     factor, so color carries vertex gradients."""
-    if engine == "parity":
-        # the grid DDA (kernel G1) has no backward
-        raise NotImplementedError("engine 'parity' has no differentiable form in this package "
-                                  "(ROADMAP A10, still open)")
     s = apply_params(scene, params)
-    world = bake_world_triangles(s)
+    world = None if engine == "parity" else bake_world_triangles(s)
     if ro is None:
         ro, rd = generate_rays(camera, resolution, device=s.device)
     if engine == "fused" and world.fused_ops is None:
@@ -83,6 +85,14 @@ def render_for_params(
         if engine == "pallas":
             def tracer(ro_, rd_, alive=None):
                 return trace_pallas_diff(world, ro_, rd_, alive=alive)
+        elif engine == "parity":
+            # the grid DDA (kernel G1, or its plain version on the CPU)
+            # freezes each bounce's winning model and triangle; the
+            # attributes are gathered from them under autograd
+            def tracer(ro_, rd_, alive=None):
+                with torch.no_grad():
+                    rec = grid_trace(s, ro_.contiguous(), rd_.contiguous(), alive=alive)
+                return parity_hit_from_model(s, rec, with_normal=not parity)
         else:
             tracer = _make_tracer(s, engine, world=world)
         acc = _render_tile(tracer, ro, rd, tile_base, key, n_samples, max_bounces, parity,

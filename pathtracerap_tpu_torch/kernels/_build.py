@@ -64,7 +64,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_noop.restype = i
     lib.ptt_noop.argtypes = [i, i, p]
     lib.ptt_grid_dda.restype = i
-    lib.ptt_grid_dda.argtypes = [p, p, i, *[p] * 5, i, *[p] * 13, i, i, i, *[p] * 7, p]
+    lib.ptt_grid_dda.argtypes = [p, p, p, i, p, i, *[p] * 8, *[i] * 11, *[p] * 11]
+    lib.ptt_grid_dda_blocks_per_sm.restype = i
+    lib.ptt_grid_dda_blocks_per_sm.argtypes = [i, i, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

@@ -352,7 +352,8 @@ def first_wavefront(world, ro_p, rd_p, hits0, key, s0: int, ns: int, n: int, max
         return x.repeat((ns,) + (1,) * (x.dim() - 1))
 
     state = RayState.primary(big(ro_p), big(rd_p), max_bounces)
-    hits = HitRecord(**{f: big(getattr(hits0, f)) for f in HitRecord.__dataclass_fields__})
+    hits = HitRecord(**{f: None if getattr(hits0, f) is None else big(getattr(hits0, f))
+                        for f in HitRecord.__dataclass_fields__})
     state = shade(state, hits, u_flat[:, 0:4], parity=parity)
     pack = torch.cat(
         [state.orig, state.dir, state.color, state.remaining.to(torch.float32)[:, None]], dim=1

@@ -71,9 +71,11 @@ def effective_engine(engine: str, world, jitter: bool) -> str:
 
 def _make_tracer(scene: SceneDevice, engine: str, world=None):
     """Tracers take (ro, rd, alive=None); ``pallas`` culls on the lanes'
-    liveness, ``mxu`` and ``parity`` ignore it."""
+    liveness and ``parity`` traces only the live rays (dead ones get the
+    miss record, which shading leaves unread); ``mxu`` ignores it."""
     if engine == "parity":
-        return lambda ro, rd, alive=None: grid_trace(scene, ro.contiguous(), rd.contiguous())
+        return lambda ro, rd, alive=None: grid_trace(scene, ro.contiguous(), rd.contiguous(),
+                                                     alive=alive)
     if engine in ("mxu", "pallas"):
         if world is None:
             world = bake_world_triangles(scene)

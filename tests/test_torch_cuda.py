@@ -931,7 +931,7 @@ def test_prof_argmin_kernel_matches_plain(dev):
 def _hits_bit_equal(a, b):
     """Two (HitRecord, stats) pairs bit for bit on every field and stat."""
     (ra, sa), (rb, sb) = a, b
-    for f in ("t", "normal", "mat_type", "mat_color", "mat_ri"):
+    for f in ("t", "normal", "mat_type", "mat_color", "mat_ri", "model", "tri"):
         x, y = getattr(ra, f), getattr(rb, f)
         if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
             return f
@@ -1004,6 +1004,118 @@ def test_grid_dda_wrapper_checks(dev):
     bad = scene.replace(voxel_tri_start=scene.voxel_tri_start[:-1])
     with pytest.raises(ValueError, match="grid tables"):
         DD.grid_trace(bad, ro, rd)
+    with pytest.raises(ValueError, match="expected"):
+        DD.grid_trace(scene, ro, rd, alive=torch.ones(64, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="expected"):
+        DD.grid_trace(scene, ro, rd, alive=torch.ones(63, dtype=torch.bool, device=dev))
+
+
+def _both(scene, o, d, alive=None):
+    from pathtracerap_tpu_torch.kernels import dda as DD
+    from pathtracerap_tpu_torch.ops.intersect import trace_parity
+
+    return (DD.grid_trace(scene, o, d, alive=alive, return_stats=True),
+            trace_parity(scene, o, d, return_stats=True, alive=alive))
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "reference"])
+def test_grid_dda_kernel_live_rays(dev, scene_name):
+    """G1 with the liveness mask against the plain version, bit for bit on
+    every ray, field, stat, model and triangle: the primaries (all live),
+    their bounce-1 wavefront with the render's mask, odd rays with half of
+    them live, a wavefront with no live ray (every record the miss, no
+    work) and one with a single live ray; one launch a call."""
+    from pathtracerap_tpu_torch.kernels import dda as DD
+    from pathtracerap_tpu_torch.render.shade import RayState, shade
+
+    if scene_name == "cornell":
+        scene = build_cornell_box_scene().to_device(dev)
+        cam = CameraConfig(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0),
+                           plane_y=(-40.0, 40.0), plane_z=100.0)
+    else:
+        scene, cam = build_reference_scene().to_device(dev), CameraConfig()
+    ro, rd = generate_rays(cam, (128, 96), device=dev)
+    ro, rd = ro.contiguous(), rd.contiguous()
+    n = ro.shape[0]
+    all_live = torch.ones(n, dtype=torch.bool, device=dev)
+    assert _hits_bit_equal(*_both(scene, ro, rd, all_live)) is None
+    k0 = DD.grid_trace(scene, ro, rd)
+    u = chunk_uniforms(prng_key(3, dev), 0, 5, n, n, 0, rng_tile=2048)
+    st = shade(RayState.primary(ro, rd, 5), k0, u[:, :4])
+    o1, d1, alive = st.orig.contiguous(), st.dir.contiguous(), st.remaining > 0
+    assert 0 < alive.sum().item() <= n
+    assert _hits_bit_equal(*_both(scene, o1, d1, alive)) is None
+    o, d = _odd_rays(dev, spread=600.0)
+    half = torch.arange(o.shape[0], device=dev) % 2 == 1
+    assert _hits_bit_equal(*_both(scene, o, d, half)) is None
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    before = DD.grid_trace.launches
+    (rec, stats), plain = _both(scene, o1, d1, none)
+    assert DD.grid_trace.launches == before + 1
+    assert _hits_bit_equal((rec, stats), plain) is None
+    assert (rec.t == 9999999.0).all() and (rec.model == -1).all() and (rec.tri == -1).all()
+    assert (rec.mat_ri == 1.5).all() and (stats["steps"] == 0).all()
+    one = none.clone()
+    one[n // 3] = True
+    (rec, stats), plain = _both(scene, o1, d1, one)
+    assert _hits_bit_equal((rec, stats), plain) is None
+    assert (stats["steps"][~one] == 0).all()
+
+
+def test_grid_dda_kernel_global_form(dev):
+    """G1's global-memory form on the highpoly blob alone under 25^3
+    voxels (5.3 MB of triangle table, up to 2,613 triangles a voxel),
+    bit-equal to the plain version on 1,024 rays aimed at it, all live and
+    half of them."""
+    from pathtracerap_tpu_torch.kernels import dda as DD
+    from pathtracerap_tpu_torch.scene.build import SceneBuilder
+    from pathtracerap_tpu_torch.scene.types import Material, MaterialType
+
+    b = SceneBuilder(grid_dims=(25, 25, 25))
+    mesh = os.path.join(os.path.dirname(GOLDEN), "..", "meshes", "highpoly_blob.obj")
+    b.add_instance(b.add_mesh_file(mesh), Material(MaterialType.DIFFUSE, (0.8, 0.3, 0.2)))
+    host = b.build()
+    scene = host.to_device(dev)
+    assert not DD.grid_trace_form(scene)["shared"]
+    g = torch.Generator().manual_seed(7)
+    lo, hi = torch.from_numpy(host.mesh_bbox_min[0]), torch.from_numpy(host.mesh_bbox_max[0])
+    o = torch.randn(1024, 3, generator=g)
+    o = (lo + hi) / 2 + 400.0 * o / o.norm(dim=1, keepdim=True)
+    d = lo + torch.rand(1024, 3, generator=g) * (hi - lo) - o
+    o, d = o.to(dev).contiguous(), d.to(dev).contiguous()
+    (rec, stats), plain = _both(scene, o, d)
+    assert _hits_bit_equal((rec, stats), plain) is None
+    assert (rec.model == 0).float().mean().item() > 0.5 and stats["tri_tests"].max().item() > 100
+    # the bounce form too (a liveness mask)
+    half = torch.arange(1024, device=dev) % 2 == 0
+    assert _hits_bit_equal(*_both(scene, o, d, half)) is None
+
+
+@pytest.mark.parametrize("parity", [True, False], ids=["parity", "quality"])
+def test_parity_train_step_on_gpu_matches_cpu(dev, parity):
+    """The parity engine's loss and its mat_color and model_to_world
+    gradients at 32x16, 2 spp, 4 bounces through G1 against the same on
+    CPU tensors (the plain version): loss rtol 1e-5, gradients rtol 1e-4,
+    as chip_smoke's train_step_vs_cpu holds them."""
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
+    from pathtracerap_tpu_torch.kernels import dda as DD
+
+    def loss_grad(d):
+        scene = build_reference_scene().to_device(d)
+        return loss_and_grad(
+            extract_params(scene, ("mat_color", "model_to_world")), scene,
+            torch.full((32 * 16, 3), 0.25, device=d), prng_key(1, d), CameraConfig(), (32, 16), 2,
+            4, tile_size=2048, engine="parity", parity=parity)
+
+    before = DD.grid_trace.launches
+    l_g, g_g = loss_grad(dev)
+    assert DD.grid_trace.launches == before + 1 + 2 * 3
+    l_c, g_c = loss_grad(torch.device("cpu"))
+    assert abs(l_g.item() - l_c.item()) <= 1e-5 * abs(l_c.item())
+    for k in g_c:
+        assert torch.isfinite(g_g[k]).all(), k
+        torch.testing.assert_close(g_g[k].cpu(), g_c[k], rtol=1e-4, atol=1e-7, msg=k)
+    assert (g_g["mat_color"] != 0).any()
 
 
 def test_parity_render_on_the_card_matches_cpu(dev):

@@ -544,7 +544,8 @@ def test_geometry_loss_vertex_gradients_match_jax():
 @pytest.mark.parametrize("engine", ["pallas", "mxu"])
 def test_other_diff_engines_name_their_item(scenes, engine):
     """The per-bounce diff engines (A8b) are ported: a loss, and a step with
-    make_train_step's default engine, on the reference scene; an engine
+    make_train_step's default engine, on the reference scene; the parity
+    engine (A10, with its backward) renders too, and an engine
     the package lacks raises."""
     scene, _ = scenes
     p = TG.extract_params(scene)
@@ -553,8 +554,10 @@ def test_other_diff_engines_name_their_item(scenes, engine):
     loss, new = TG.make_train_step(scene, CAM, SMALL, 1, 2)(
         p, torch.zeros(SMALL[0] * SMALL[1], 3), prng_key(0, "cpu"))
     assert torch.isfinite(loss) and not torch.equal(new["mat_color"], p["mat_color"])
-    with pytest.raises(NotImplementedError, match="A10"):
-        TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine="parity")
+    img = TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine="parity")
+    assert img.shape == (SMALL[0] * SMALL[1], 3) and torch.isfinite(img).all() and img.max() > 0
+    with pytest.raises(ValueError, match="unknown engine"):
+        TG.render_for_params(p, scene, prng_key(0, "cpu"), CAM, SMALL, 1, 2, engine="dense")
 
 
 def test_single_block_world_names_its_item(worlds):

@@ -19,7 +19,9 @@ from pathtracerap_tpu.scene import dsl as JD
 from pathtracerap_tpu.scene.build import build_cornell_box_scene as jax_cornell
 from pathtracerap_tpu.scene.grid import build_uniform_grid as jax_grid
 from pathtracerap_tpu.scene.grid import grids_to_ell as jax_ell
-from pathtracerap_tpu_torch import Renderer, build_cornell_box_scene, read_bmp
+from pathtracerap_tpu_torch import (
+    Renderer, build_cornell_box_scene, build_reference_scene, read_bmp,
+)
 from pathtracerap_tpu_torch.scene.dsl import (
     SceneParseError,
     _parse_value,
@@ -166,6 +168,75 @@ def test_cornell_grids_equal_jax_and_reach_the_device():
     assert dev.grid_dims == (25, 25, 25)
     np.testing.assert_array_equal(dev.voxel_tris_ell.numpy(), ref.voxel_tris_ell)
     np.testing.assert_array_equal(dev.per_voxel_tris.numpy(), ref.per_voxel_tris)
+
+
+@pytest.mark.parametrize("build", [build_cornell_box_scene, build_reference_scene],
+                         ids=["cornell", "reference"])
+def test_grid_trace_tables_equal_the_scene(build):
+    """Kernel G1's tables (kernels/dda.py::_scene_args) hold the scene's
+    values bit for bit: the triangle table is vertex_pos[tri_vidx] as
+    (v0, v1 - v0, v2 - v0), the same IEEE subtractions the plain version's
+    Moeller-Trumbore makes, padded with zeros to a multiple of 4 floats; the
+    voxels' (start, count); each model's row (transform rows, normal
+    matrix, its mesh's box, its grid's voxel width and first voxel, its
+    material); the triangles' averaged vertex normals; and the shared
+    form's bit a voxel for a non-empty bucket, each set bit's rank and
+    cell (its bucket's start and count), and the entries as 16-bit
+    indices, two a word."""
+    from pathtracerap_tpu_torch.kernels.dda import MODEL_WORDS, SHARED_TABLES, _scene_args
+    from pathtracerap_tpu_torch.ops.intersect import averaged_normal, normal_matrix
+
+    host = build()
+    dev = host.to_device("cpu")
+    t = _scene_args(dev, torch.device("cpu"))
+    n_tri = host.tri_vidx.shape[0]
+    v = host.vertex_pos[host.tri_vidx]  # (T, 3, 3)
+    flat = t["tris"].numpy()
+    assert flat.size % 4 == 0 and flat.size - 9 * n_tri < 4 and not flat[9 * n_tri:].any()
+    tab = flat[:9 * n_tri].reshape(n_tri, 9)
+    for cols, want in ((slice(0, 3), v[:, 0]), (slice(3, 6), v[:, 1] - v[:, 0]),
+                       (slice(6, 9), v[:, 2] - v[:, 0])):
+        np.testing.assert_array_equal(tab[:, cols].view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(t["voxel"].numpy(),
+                                  np.stack([host.voxel_tri_start, host.voxel_tri_count], axis=1))
+    np.testing.assert_array_equal(t["vt_tris"].numpy(), host.per_voxel_tris)
+    m = t["models"].numpy()
+    assert m.shape == (host.num_models, MODEL_WORDS)
+    mesh, grid = host.model_mesh, host.model_grid
+    np.testing.assert_array_equal(m[:, 0:12], host.world_to_model[:, :3, :].reshape(-1, 12))
+    np.testing.assert_array_equal(m[:, 12:24], host.model_to_world[:, :3, :].reshape(-1, 12))
+    np.testing.assert_array_equal(m[:, 24:33],
+                                  normal_matrix(dev.model_to_world).reshape(-1, 9).numpy())
+    np.testing.assert_array_equal(m[:, 33:36], host.mesh_bbox_min[mesh])
+    np.testing.assert_array_equal(m[:, 36:39], host.mesh_bbox_max[mesh])
+    np.testing.assert_array_equal(m[:, 39:42], host.grid_voxel_width[grid])
+    np.testing.assert_array_equal(m[:, 42].view(np.int32), host.grid_voxel_start[grid])
+    np.testing.assert_array_equal(m[:, 43].view(np.int32), host.mat_type)
+    np.testing.assert_array_equal(m[:, 44:47], host.mat_color)
+    np.testing.assert_array_equal(m[:, 47], host.mat_refractive_index)
+    np.testing.assert_array_equal(
+        t["tri_nrm"].numpy(), averaged_normal(dev.vertex_nrm, dev.tri_vidx.long()).numpy())
+    nv = host.voxel_tri_count.shape[0]
+    bits = np.unpackbits(t["occupied"].numpy().view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(bits[:nv], host.voxel_tri_count > 0)
+    assert not bits[nv:].any() and t["occupied"].numel() % 4 == 0
+    n_entries = host.per_voxel_tris.shape[0]
+    entries = t["entries"].numpy().view(np.uint16)
+    np.testing.assert_array_equal(entries[:n_entries], host.per_voxel_tris)
+    assert not entries[n_entries:].any() and t["entries"].numel() % 4 == 0
+    # a set bit's cell: its rank among the set bits (the set bits before its
+    # word, then those below it in the word) holds its bucket
+    full = np.flatnonzero(host.voxel_tri_count > 0)
+    rank = t["word_rank"].numpy().view(np.uint16)[full // 32].astype(np.int64)
+    words = t["occupied"].numpy().view(np.uint32)[full // 32].astype(np.int64)
+    below = np.array([bin(w & ((1 << (f % 32)) - 1)).count("1") for w, f in zip(words, full)])
+    np.testing.assert_array_equal(rank + below, np.arange(full.size))
+    cells = t["cells"].numpy().view(np.uint32)[:full.size]
+    np.testing.assert_array_equal(cells & 0xFFFF, host.voxel_tri_start[full])
+    np.testing.assert_array_equal(cells >> 16, host.voxel_tri_count[full])
+    staged = sum(t[k].numel() for k in SHARED_TABLES)
+    assert all(t[k].numel() % 4 == 0 for k in SHARED_TABLES)
+    assert t["shared"] and t["smem_bytes"] == 4 * staged
 
 
 def test_dsl_parses_and_builds():

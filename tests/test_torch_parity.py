@@ -192,14 +192,15 @@ def test_grid_trace_scene_tables_made_once_a_scene(scenes):
     ps = base.replace(model_to_world=base.model_to_world.clone())
     first = _scene_args(ps, cpu)
     assert _scene_args(ps, cpu) is first
-    assert torch.equal(first[2], PI.normal_matrix(ps.model_to_world))
+    nmat = slice(24, 33)  # the normal matrix in a model's row
+    assert torch.equal(first["models"][:, nmat], PI.normal_matrix(ps.model_to_world).reshape(-1, 9))
     other = ps.replace(mat_color=ps.mat_color.clone())
     assert not other.kernel_tables and _scene_args(other, cpu) is not first
     assert _scene_args(ps, cpu) is first
     ps.model_to_world.mul_(2.0)
     again = _scene_args(ps, cpu)
     assert again is not first
-    assert torch.equal(again[2], PI.normal_matrix(ps.model_to_world))
+    assert torch.equal(again["models"][:, nmat], PI.normal_matrix(ps.model_to_world).reshape(-1, 9))
     with pytest.raises(ValueError, match="expected"):
         _scene_args(ps.replace(mat_type=ps.mat_type.long()), cpu)
 
