@@ -55,7 +55,17 @@ and read just after:
   Cornell box (fused) stopped after its first chunk and resumed, bit-equal
   to the unbroken chunked render; the main-path render with a
   ``MetricsLogger`` and under ``profile_trace``; and the four profiling
-  scripts' ``main()`` (``pathtracerap_tpu_torch/scripts``) at full size.
+  scripts' ``main()`` (``pathtracerap_tpu_torch/scripts``) at full size;
+* the command line and the data-parallel layer: ``python -m
+  pathtracerap_tpu_torch.cli render --engine fused --spp 24`` at 1000x800 x 5
+  bounces in a subprocess, its BMP byte-equal to ``Renderer.render()``'s;
+  ``invert`` (200x160, 2 spp, 3 steps) against ``make_train_step``;
+  ``info`` and ``visualize`` (kernel G1); two ranks under gloo on the one
+  card (``--rank-job``): the data-parallel binned render at 1000x800 x 2
+  spp bit-equal to the single-process render, the sharded ``mat_color``
+  step (``overlap_chunks`` 1 and 2) within rtol 1e-5 of the one-rank step,
+  and the liveness probe; and the glass scene in quality mode against its
+  golden.
 
 Kernels 1 to 4 (``csrc/trace_list.cu``, ``csrc/bounce.cu``,
 ``csrc/bounce_trace.cu``, ``csrc/megakernel.cu``) must be bit for bit
@@ -188,6 +198,15 @@ MT_FLOPS = 47
 DDA_STEP_FLOPS = 24
 P3_SHAPES = ((512, 512), (131072, 512))
 PROFILE_SPP = 4  # the profiled render: the main path's, at fewer samples
+# the command line and the data-parallel layer
+CLI_INVERT_RES, CLI_INVERT_SPP, CLI_INVERT_STEPS, CLI_INVERT_LR = (200, 160), 2, 3, 0.1
+DP_RANKS, DP_SPP = 2, 2  # two ranks under gloo, both on cuda:0
+RANK_TIMEOUT_S = 420  # the ranks' deadline together, start-up and kernel load included
+LAUNCHES_TAG = "chip_smoke launches: "
+GLASS_SCENE = os.path.join(ROOT, "scenes", "glass_sphere.scn")
+GLASS_GOLDEN = os.path.join(ROOT, "assets", "golden", "glass_sphere.bmp")
+GLASS_RES, GLASS_SPP, GLASS_BOUNCES = (96, 72), 8, 6  # tests/test_refraction.py:150
+GLASS_MAD, GLASS_CORR = 0.04, 0.97
 
 
 # the device timer (cuda_ms): torch.cuda._sleep spins this many SM clocks a
@@ -196,6 +215,8 @@ PROFILE_SPP = 4  # the profiled render: the main path's, at fewer samples
 SLEEP_CYCLES_PER_MS = 2.0e6
 TIMER_PROBE_MS, TIMER_MAX_SPIN_MS, TIMER_TRIES = 20.0, 500.0, 4
 TIMER_DEVICE_MS, TIMER_MAX_REPS = 25.0, 200
+# a plain version whose one call takes this long is read from that one call
+TIMER_ONE_CALL_MS = 100.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -217,7 +238,9 @@ def cuda_ms(fn, reps: int = 10, host: dict = None, lead: bool = True) -> float:
     ahead raises.  Without it (plain versions, some of which wait for the
     device) such a reading holds host time.  ``host``, a dict, receives
     the host's µs a call (``host_us``) and whether the queue stayed ahead
-    of the device (``queue_ahead``)."""
+    of the device (``queue_ahead``).  Without ``lead``, a call of at least
+    TIMER_ONE_CALL_MS is read from the one call between events after the
+    probe: its host time and the events' own are noise beside it."""
     import torch
 
     def events():
@@ -235,6 +258,8 @@ def cuda_ms(fn, reps: int = 10, host: dict = None, lead: bool = True) -> float:
     fn()
     b.record()
     torch.cuda.synchronize()
+    if not lead and a.elapsed_time(b) >= TIMER_ONE_CALL_MS:
+        return a.elapsed_time(b)
     n = max(reps, min(TIMER_MAX_REPS, math.ceil(TIMER_DEVICE_MS / max(a.elapsed_time(b), 1e-3))))
     for _ in range(TIMER_TRIES if lead else 1):
         spin_ms = min(TIMER_MAX_SPIN_MS, 2.0 * n * host_ms + 1.0)
@@ -2611,6 +2636,326 @@ def p3_vs_plain(dev):
     return res
 
 
+def cli_counted(args) -> int:
+    """``python -m pathtracerap_tpu_torch.cli ARGS`` in this process, with the
+    kernels' launch counts set to 0 before it and printed to stderr after
+    it (run as ``python chip_smoke.py --cli ARGS``)."""
+    import runpy
+
+    sys.argv = ["pathtracerap_tpu_torch.cli"] + list(args)
+    _zero_counts()
+    try:
+        runpy.run_module("pathtracerap_tpu_torch.cli", run_name="__main__", alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    print(LAUNCHES_TAG + json.dumps(_counts()), file=sys.stderr, flush=True)
+    return code
+
+
+def _run_cli(args, timeout: float = 600.0) -> dict:
+    """The CLI in a subprocess (``cli_counted``): its exit code, wall, output
+    and launch counts."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli"] + list(args),
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli {args[0]} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    counts = [ln[len(LAUNCHES_TAG):] for ln in proc.stderr.splitlines() if ln.startswith(LAUNCHES_TAG)]
+    return {"wall_s": wall, "stdout": proc.stdout, "stderr": proc.stderr,
+            "counts": json.loads(counts[-1])}
+
+
+def cli_render(dev):
+    """``python -m pathtracerap_tpu_torch.cli render --engine fused --spp 24``
+    at 1000x800 x 5 bounces in a subprocess: its BMP's bytes equal those of
+    ``Renderer.render()`` here at the same seed, quantized and written as
+    the CLI writes them."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import RenderConfig, Renderer, build_reference_scene
+    from pathtracerap_tpu_torch.io.bmp import quantize_image, write_bmp
+
+    os.makedirs(WORK, exist_ok=True)
+    out, ref = os.path.join(WORK, "cli_render.bmp"), os.path.join(WORK, "cli_render_ref.bmp")
+    torch.cuda.empty_cache()
+    w, h = RESOLUTION
+    run = _run_cli(["render", "--engine", "fused", "--spp", str(SPP), "--width", str(w),
+                    "--height", str(h), "--bounces", str(MAX_BOUNCES), "--out", out])
+    metrics = [json.loads(ln.split("[metrics] render ", 1)[1]) for ln in run["stderr"].splitlines()
+               if ln.startswith("[metrics] render ")]
+    res = {"cli_wall_s": run["wall_s"], "cli_render_s": metrics[-1]["chunks"][0]["wall_s"],
+           "cli_printed": run["stdout"].strip()}
+    res.update(run["counts"])
+    check(res["trace_list_launches"] > 0 and res["bounce_launches"] > 0,
+          "the CLI render launched kernels 1 and 2")
+    check(res["plain_calls"] == 0, "no plain version called by the CLI render")
+    cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=SPP, max_bounces=MAX_BOUNCES,
+                       engine="fused")
+    r = Renderer(build_reference_scene().to_device(dev), cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image = r.render()
+    torch.cuda.synchronize()
+    res["renderer_render_s"] = time.perf_counter() - t0
+    write_bmp(ref, quantize_image(image.cpu().numpy() * SPP, SPP), parity=True)
+    with open(out, "rb") as a, open(ref, "rb") as b:
+        res["bmp_bytes_equal"] = a.read() == b.read()
+    check(res["bmp_bytes_equal"], "the CLI's BMP equals Renderer.render()'s byte for byte")
+    check(np.isfinite(image.cpu().numpy()).all(), "the render is finite")
+    return res
+
+
+def cli_invert(dev):
+    """``invert`` on the reference scene (the self-calibration demo), 3 steps
+    at 200x160 x 2 spp x 5 bounces, through ``cli.main``: the loss falls, and
+    ``make_train_step`` here prints the same losses within rtol 1e-5."""
+    import torch
+
+    from pathtracerap_tpu_torch import RenderConfig, build_reference_scene, cli
+    from pathtracerap_tpu_torch.diff import extract_params, make_train_step, render_for_params
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+
+    w, h = CLI_INVERT_RES
+    buf = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["invert", "--width", str(w), "--height", str(h), "--spp",
+                       str(CLI_INVERT_SPP), "--steps", str(CLI_INVERT_STEPS)])
+    res = {"wall_s": time.perf_counter() - t0}
+    res.update(_counts())
+    printed = [float(ln.split("loss=")[1]) for ln in buf.getvalue().splitlines()
+               if ln.startswith("step ")]
+    check(rc == 0 and len(printed) == CLI_INVERT_STEPS, f"invert ran {len(printed)} steps")
+    check(printed[-1] < printed[0], f"the loss falls: {printed}")
+    check(res["trace_list_launches"] > 0 and res["plain_calls"] == 0,
+          "invert traced through kernel 1, no plain version")
+    scene = build_reference_scene().to_device(dev)
+    cfg = RenderConfig(resolution=CLI_INVERT_RES, samples_per_pixel=CLI_INVERT_SPP)
+    key = prng_key(cfg.seed, dev)
+    with torch.no_grad():
+        target = render_for_params(extract_params(scene, ("mat_color",)), scene, key, cfg.camera,
+                                   cfg.resolution, CLI_INVERT_SPP, cfg.max_bounces)
+    params = {"mat_color": scene.mat_color * 0.5}
+    step = make_train_step(scene, cfg.camera, cfg.resolution, CLI_INVERT_SPP, cfg.max_bounces,
+                           lr=CLI_INVERT_LR)
+    own = []
+    for _ in range(CLI_INVERT_STEPS):
+        loss, params = step(params, target, key)
+        own.append(float(f"{float(loss):.6f}"))  # as the CLI prints it
+    res.update({"losses": printed, "make_train_step_losses": own,
+                "max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(printed, own))})
+    check(res["max_rel_diff"] <= LOSS_RTOL, f"invert's losses equal make_train_step's: {res}")
+    return res
+
+
+def cli_info_visualize(dev):
+    """``info``'s JSON keys and ``visualize``'s seven BMPs through kernel G1,
+    through ``cli.main`` on the card."""
+    from pathtracerap_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["info"]) == 0, "info exits 0")
+    info = json.loads(buf.getvalue())
+    keys = ["models", "meshes", "triangles", "grids", "voxels", "per_voxel_entries", "ell_width",
+            "config"]
+    check(list(info) == keys, f"info's keys {list(info)}")
+    check(info["models"] == 11 and info["triangles"] == 1039, "the reference scene's counts")
+    out_dir = os.path.join(WORK, "cli_aovs")
+    buf = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["visualize", "--out-dir", out_dir]) == 0, "visualize exits 0")
+    res = {"visualize_s": time.perf_counter() - t0, "info": {k: info[k] for k in keys[:-1]}}
+    res.update(_counts())
+    lines = buf.getvalue().splitlines()
+    check(len(lines) == 7 and all(os.path.getsize(ln.split(": ", 1)[1]) > 0 for ln in lines),
+          "visualize wrote seven BMPs")
+    check(res["grid_dda_launches"] == 1 and res["plain_calls"] == 0, "visualize launched G1")
+    return res
+
+
+def rank_job(prefix: str) -> int:
+    """One rank of the data-parallel phases (``python chip_smoke.py
+    --rank-job PREFIX`` under torchrun's variables): the liveness probe, the
+    data-parallel binned render of the reference scene at 1000x800 x 2 spp
+    x 5 bounces, and one sharded ``mat_color`` step at the same size with
+    ``overlap_chunks`` 1 and 2; each path's launch counts taken around it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, build_reference_scene
+    from pathtracerap_tpu_torch.diff import extract_params, make_sharded_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.parallel import default_mesh, init_distributed, render_image_dp
+    from pathtracerap_tpu_torch.utils.failure import liveness_probe
+
+    info = init_distributed()
+    mesh = default_mesh()
+    dev = mesh.device
+    check(dev.type == "cuda", f"rank {mesh.rank} renders on {dev}")
+    res = {"info": info, "backend": mesh.backend, "device": str(dev),
+           "liveness": liveness_probe()}
+    scene = build_reference_scene().to_device(dev)
+    cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=DP_SPP, max_bounces=MAX_BOUNCES,
+                       engine="fused")
+    render_image_dp(scene, cfg, mesh=mesh)  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    _zero_counts()
+    t0 = time.perf_counter()
+    image = render_image_dp(scene, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    res["dp_render"] = {"wall_s": time.perf_counter() - t0, **_counts()}
+    arrays = {"image": image.cpu().numpy()}
+    n = RESOLUTION[0] * RESOLUTION[1]
+    for chunks in (1, 2):
+        step = make_sharded_train_step(scene, CameraConfig(), RESOLUTION, DP_SPP, MAX_BOUNCES,
+                                       mesh, engine="fused", overlap_chunks=chunks)
+        params = extract_params(scene, ("mat_color",))
+        target, key = torch.zeros((n, 3), device=dev), prng_key(0, dev)
+        torch.cuda.synchronize()
+        dist.barrier()
+        _zero_counts()
+        t0 = time.perf_counter()
+        loss, new = step(params, target, key)
+        torch.cuda.synchronize()
+        res[f"step_chunks{chunks}"] = {"wall_s": time.perf_counter() - t0, "loss": float(loss),
+                                       **_counts()}
+        arrays[f"mat_color_chunks{chunks}"] = new["mat_color"].cpu().numpy()
+    with open(f"{prefix}.rank{mesh.rank}.json", "w") as f:
+        json.dump(res, f)
+    if mesh.rank == 0:
+        np.savez(f"{prefix}.npz", **arrays)
+    dist.destroy_process_group()
+    return 0
+
+
+def data_parallel(dev) -> dict:
+    """Two ranks under gloo, both on cuda:0 (``rank_job``), against this
+    single process: the data-parallel render bit for bit against
+    ``Renderer.render()``, the sharded step within rtol 1e-5 of the
+    one-rank step, and the liveness probe.  The ranks share one card, so
+    their walls say nothing of scaling."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, build_reference_scene
+    from pathtracerap_tpu_torch.diff import extract_params, make_sharded_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.parallel import default_mesh
+    from pathtracerap_tpu_torch.parallel.dryrun import run_local_ranks
+
+    os.makedirs(WORK, exist_ok=True)
+    prefix = os.path.join(WORK, "dp")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_local_ranks(lambda r: [sys.executable, os.path.abspath(__file__), "--rank-job",
+                                         prefix], DP_RANKS, timeout=RANK_TIMEOUT_S, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    for r, (rc, text) in enumerate(results):
+        check(rc == 0, f"rank {r} exited {rc}: {text[-3000:]}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(f"{prefix}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    arrays = np.load(prefix + ".npz")
+    note = "the ranks share one card: these walls say nothing of scaling"
+    out = {"liveness": {"answered": [k["liveness"] for k in ranks],
+                        "backend": [k["backend"] for k in ranks],
+                        "devices": [k["device"] for k in ranks], "ranks_wall_s": wall}}
+    check(all(k["liveness"] == DP_RANKS for k in ranks), "the liveness probe counts both ranks")
+    check(all(k["backend"] == "gloo" for k in ranks), "ranks on one card run under gloo")
+
+    scene = build_reference_scene().to_device(dev)
+    cfg = RenderConfig(resolution=RESOLUTION, samples_per_pixel=DP_SPP, max_bounces=MAX_BOUNCES,
+                       engine="fused")
+    r = Renderer(scene, cfg, device=dev)
+    r.render()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = r.render()
+    torch.cuda.synchronize()
+    dp = {"note": note, "engine": r.engine, "single_process_s": time.perf_counter() - t0,
+          "rank_wall_s": [k["dp_render"]["wall_s"] for k in ranks],
+          "launches": [{key: k["dp_render"][key] for key in k["dp_render"] if key != "wall_s"}
+                       for k in ranks]}
+    dp["bit_equal"] = bool(np.array_equal(arrays["image"], single.cpu().numpy()))
+    check(dp["bit_equal"], "the two-rank render equals Renderer.render() bit for bit")
+    for k in ranks:
+        c = k["dp_render"]
+        check(c["trace_list_launches"] > 0 and c["bounce_launches"] > 0 and c["plain_calls"] == 0,
+              "every rank's render launched kernels 1 and 2")
+    out["dp_render"] = dp
+
+    step_res = {"note": note}
+    n = RESOLUTION[0] * RESOLUTION[1]
+    for chunks in (1, 2):
+        step = make_sharded_train_step(scene, CameraConfig(), RESOLUTION, DP_SPP, MAX_BOUNCES,
+                                       default_mesh(dev), engine="fused", overlap_chunks=chunks)
+        params = extract_params(scene, ("mat_color",))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, new = step(params, torch.zeros((n, 3), device=dev), prng_key(0, dev))
+        torch.cuda.synchronize()
+        got = [k[f"step_chunks{chunks}"] for k in ranks]
+        ref_p = new["mat_color"].cpu().numpy()
+        dp_p = arrays[f"mat_color_chunks{chunks}"]
+        row = {"single_process_s": time.perf_counter() - t0, "rank_wall_s": [g["wall_s"] for g in got],
+               "loss": got[0]["loss"], "single_process_loss": loss.item(),
+               "loss_rel_diff": abs(got[0]["loss"] - loss.item()) / abs(loss.item()),
+               "params_rel_diff": float(np.abs(dp_p - ref_p).max() / np.abs(ref_p).max()),
+               "launches": [{key: g[key] for key in g if key not in ("wall_s", "loss")} for g in got]}
+        check(row["loss_rel_diff"] <= LOSS_RTOL, f"sharded loss within rtol 1e-5: {row}")
+        np.testing.assert_allclose(dp_p, ref_p, rtol=LOSS_RTOL, atol=1e-7)
+        for g in got:
+            check(g["trace_list_launches"] > 0 and g["bounce_trace_launches"] > 0
+                  and g["plain_calls"] == 0, "every rank's step launched kernels 1 and 3")
+        step_res[f"chunks{chunks}"] = row
+    out["sharded_train_step"] = step_res
+    return out
+
+
+def glass_render(dev):
+    """The glass scene in quality mode at its golden's settings (fused,
+    96x72, 8 spp, 6 bounces) against ``assets/golden/glass_sphere.bmp``:
+    mean |diff| < 0.04 and correlation > 0.97 after downsampling by 4."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import Renderer, read_bmp
+    from pathtracerap_tpu_torch.scene.dsl import load_scene_file, render_config_from_parsed
+
+    p = load_scene_file(GLASS_SCENE)
+    cfg = render_config_from_parsed(p, engine="fused", parity=False, samples_per_pixel=GLASS_SPP,
+                                    resolution=GLASS_RES, max_bounces=GLASS_BOUNCES)
+    r = Renderer(p.scene.to_device(dev), cfg, device=dev)
+    r.render()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = r.render()
+    torch.cuda.synchronize()
+    res = {"effective_engine": r.engine, "render_s": time.perf_counter() - t0}
+    res.update(_counts())
+    img = img.cpu().numpy()
+    gold = read_bmp(GLASS_GOLDEN).astype(np.float32) / 255.0
+    check(img.shape == gold.shape and np.isfinite(img).all(), "glass render shape and finite")
+    a, b = downsample(img, 4), downsample(gold, 4)
+    res["golden_mad"] = float(np.abs(a - b).mean())
+    res["golden_corr"] = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+    check(res["golden_mad"] < GLASS_MAD and res["golden_corr"] > GLASS_CORR,
+          f"glass render within its golden's bounds: {res}")
+    launched = res["sample_fused_launches"] if r.engine == "fused" else res["bounce_launches"]
+    check(launched > 0 and res["plain_calls"] == 0, f"the {r.engine} engine's kernels launched")
+    return res
+
+
 _T0 = time.perf_counter()
 
 
@@ -2710,6 +3055,14 @@ def main() -> int:
     phase("metrics_and_profile", metrics_and_profile(dev))
     ps = prof_scripts(dev)
     phase("prof_scripts", ps)
+    phase("cli_render", cli_render(dev))
+    phase("cli_invert", cli_invert(dev))
+    phase("cli_info_visualize", cli_info_visualize(dev))
+    dp = data_parallel(dev)
+    phase("dp_render", dp["dp_render"])
+    phase("sharded_train_step", dp["sharded_train_step"])
+    phase("liveness", dp["liveness"])
+    phase("glass_render", glass_render(dev))
     check("jax" not in sys.modules, "jax was never imported")
 
     def entry(name, source, replaces, launches, k, max_abs_err=None, extra=()):
@@ -2826,4 +3179,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli"]:
+        sys.exit(cli_counted(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job(sys.argv[2]))
     sys.exit(main())

@@ -5,7 +5,7 @@ traversal kernels written by hand in CUDA C++ for Hopper (``csrc/``).  The
 JAX package stays the reference the port is held against; this package
 imports neither ``jax`` nor anything of ``pathtracerap_tpu``, and keeps its
 own copies of the host modules it needs (``constants``, ``config``,
-``io.bmp``, ``io.obj``).
+``io.bmp``, ``io.obj``, ``io.ply``, ``oracle``).
 
 It covers, through ``Renderer(scene, config, device).render()``:
 
@@ -26,8 +26,19 @@ holds the benchmark suite's scenes and configs.
 
 ``Renderer.render(seed, checkpoint_path=None, metrics=None)`` renders in
 chunks that checkpoint and resume bit for bit; ``utils`` holds the
-checkpoint, failure, metrics, profiling and debug (``PTAP_DEBUG=1``)
-helpers; ``scripts`` the profiling scripts with their kernels P1 to P4.
+checkpoint, failure (with the collective ``liveness_probe``), metrics,
+profiling and debug (``PTAP_DEBUG=1``) helpers; ``scripts`` the profiling
+scripts with their kernels P1 to P4.
+
+``python -m pathtracerap_tpu_torch.cli render | benchmark | invert | info |
+visualize`` is the command line (:mod:`.cli`, JAX's flags plus
+``--device``).  :mod:`.parallel` renders and trains data-parallel over the
+ranks of a ``torch.distributed`` group (one process a card; ``gloo`` on the
+CPU or where ranks share a card): ``render_image_dp``, the sample-parallel
+render, ``diff.make_sharded_train_step``, ``init_distributed``,
+``scaling_report`` and ``python -m pathtracerap_tpu_torch.parallel.dryrun``.
+``io.ply`` reads PLY meshes (scene files take them), and ``oracle`` is the
+scalar NumPy oracle the tests hold the engines to.
 """
 
 __version__ = "0.1.0"

@@ -38,6 +38,7 @@ from .scene.build import (
     make_sphere_mesh,
 )
 from .scene.types import Material, MaterialType
+from .utils.profiling import sync_device
 
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "assets", "meshes",
                      "highpoly_blob.obj")
@@ -130,11 +131,6 @@ def suite_configs() -> Dict[str, dict]:
     }
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def render_gridparity(scene, cfg: RenderConfig) -> torch.Tensor:
     """The gridparity row's render: the parity engine with one RNG tile
     over all the rays, as JAX's row draws them
@@ -168,10 +164,10 @@ def run_config(name: str, engine: str = "fused", repeats: int = 2, device="cuda"
     img = render()  # warm-up
     best = float("inf")
     for _ in range(repeats):
-        _sync(device)
+        sync_device(device)
         t0 = time.perf_counter()
         img = render()
-        _sync(device)
+        sync_device(device)
         best = min(best, time.perf_counter() - t0)
     full_spp = spec["cfg"].get("samples_per_pixel", spp)
     return {

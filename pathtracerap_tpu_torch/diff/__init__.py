@@ -4,6 +4,7 @@ from .grad import (
     geometry_loss,
     image_loss,
     loss_and_grad,
+    make_sharded_train_step,
     make_train_step,
     render_aovs,
     render_for_params,
@@ -18,4 +19,5 @@ __all__ = [
     "geometry_loss",
     "loss_and_grad",
     "make_train_step",
+    "make_sharded_train_step",
 ]

@@ -10,7 +10,9 @@ image is the mean of per-sample ``sqrt`` tone-mapped throughputs.
 
 Parameters are plain dicts of tensors (``extract_params``); a train step
 is :func:`loss_and_grad` (``torch.autograd.grad``) and the update
-``p - lr * g``.  Four diff engines: ``pallas`` (the default), the
+``p - lr * g``; :func:`make_sharded_train_step` splits the rays over the
+ranks of a ``torch.distributed`` group and sums the gradients.  Four diff
+engines: ``pallas`` (the default), the
 per-bounce engine of :mod:`..render.wavefront` tracing through
 :func:`.fast.trace_pallas_diff`; ``mxu``, the same engine differentiated
 straight through :func:`..ops.plucker.trace_mxu`; ``parity``, the same
@@ -32,6 +34,7 @@ from ..kernels.dda import grid_trace
 from ..kernels.megakernel import BINNED_SLAB_TILES, FUSED_SLAB_TILES
 from ..ops.plucker import bake_world_triangles, trace_mxu
 from ..ops.rng import RNG_TILE
+from ..parallel.sharding import all_reduce_sum, default_mesh, pad_share, rank_share
 from ..render.camera import generate_rays
 from ..render.wavefront import _make_tracer, _render_tile
 from ..scene.types import SceneDevice
@@ -211,5 +214,84 @@ def make_train_step(
             tile_size=tile_size, engine=engine, parity=parity,
         )
         return loss, {k: p.detach() - lr * grads[k] for k, p in params.items()}
+
+    return step
+
+
+def make_sharded_train_step(
+    scene: SceneDevice,
+    camera,
+    resolution,
+    n_samples: int,
+    max_bounces: int,
+    mesh=None,
+    lr: float = 0.05,
+    tile_size: int = 2048,
+    engine: str = DEFAULT_DIFF_ENGINE,
+    overlap_chunks: int = 1,
+    parity: bool = True,
+):
+    """Data-parallel train step over the ranks of ``mesh`` (a
+    :class:`..parallel.sharding.Mesh`; default: the default process group):
+    the rays are padded and split as the data-parallel render splits them,
+    the loss is the SUM over rays (padding rays weighted 0), and the loss
+    and gradients are ``all_reduce``d with SUM, so every rank applies the
+    same SGD update.  Ray ``r``'s RNG tile is ``r // tile_size`` for any
+    world size, so the result does not depend on it, up to the order of the
+    sums.
+
+    ``overlap_chunks > 1`` splits a rank's rays into that many chunks; each
+    chunk's loss and gradients are reduced asynchronously and waited on
+    after the next chunk's backward (JAX's per-chunk ``psum`` inside the
+    scan, ``pathtracerap_tpu/diff/grad.py:313-344``).
+
+    Returns ``step(params, target_flat, key) -> (loss, new_params)`` where
+    ``target_flat`` is the (N, 3) target in ray order."""
+    if mesh is None:
+        mesh = default_mesh(scene.device)
+    if engine == "fused":
+        # the fused diff path's RNG stream is tiled at 8192 rows: rank
+        # slabs align to it so tile_base is in those units
+        tile_size = RNG_TILE
+    ro, rd = generate_rays(camera, resolution, device=scene.device)
+    n = ro.shape[0]
+    per = rank_share(n, mesh.world_size, tile_size * overlap_chunks)
+    lo = mesh.rank * per
+    ro_l, rd_l = pad_share(ro, rd, lo, per)
+    # padding rays render scene content against a zero target: weight 0
+    w_l = (torch.arange(lo, lo + per, device=scene.device) < n).to(torch.float32)[:, None]
+    tile_base = mesh.rank * (per // tile_size)
+    rays_per_chunk = per // overlap_chunks
+    tiles_per_chunk = rays_per_chunk // tile_size
+
+    def step(params, target_flat, key):
+        target_l = target_flat[lo:lo + per]
+        if target_l.shape[0] < per:
+            target_l = torch.cat([target_l, target_l.new_zeros(per - target_l.shape[0], 3)])
+        names = list(params)
+        loss, grads, pending = None, None, []
+
+        def merge(wait):
+            nonlocal loss, grads
+            flat = wait()
+            parts = torch.split(flat[1:], [params[k].numel() for k in names])
+            g = {k: p.reshape(params[k].shape) for k, p in zip(names, parts)}
+            loss = flat[0] if loss is None else loss + flat[0]
+            grads = g if grads is None else {k: grads[k] + g[k] for k in names}
+
+        for c in range(overlap_chunks):
+            rows = slice(c * rays_per_chunk, (c + 1) * rays_per_chunk)
+            loss_c, g_c = loss_and_grad(
+                params, scene, target_l[rows], key, camera, resolution, n_samples,
+                max_bounces, tile_size=tile_size, ro=ro_l[rows], rd=rd_l[rows],
+                tile_base=tile_base + c * tiles_per_chunk, reduce="sum", engine=engine,
+                weight=w_l[rows], parity=parity,
+            )
+            flat = torch.cat([loss_c.reshape(1)] + [g_c[k].reshape(-1) for k in names])
+            pending.append(all_reduce_sum(flat, mesh, async_op=True))
+            if len(pending) > 1:  # the previous chunk's reduce ran beside this backward
+                merge(pending.pop(0))
+        merge(pending.pop(0))
+        return loss, {k: params[k].detach() - lr * grads[k] for k in names}
 
     return step

@@ -430,14 +430,15 @@ def render_samples_binned(
 
 
 def render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces, sample_offset=0,
-                             parity=True, debug=None):
+                             parity=True, debug=None, tile_base=0):
     """The facade's binned loop: ``BINNED_SLAB_TILES`` RNG tiles of rays per
-    call, with the global RNG tile numbering ``tile_base = s0 // 8192``."""
+    call, with the global RNG tile numbering ``tile_base + s0 // 8192``."""
     slab = BINNED_SLAB_TILES * RNG_TILE
     parts = [
         render_samples_binned(
             world, ro[s0:s0 + slab], rd[s0:s0 + slab], key, n_samples, max_bounces,
-            sample_offset=sample_offset, parity=parity, tile_base=s0 // RNG_TILE, debug=debug,
+            sample_offset=sample_offset, parity=parity, tile_base=tile_base + s0 // RNG_TILE,
+            debug=debug,
         )
         for s0 in range(0, ro.shape[0], slab)
     ]
@@ -678,14 +679,14 @@ def render_samples_fused(
 
 
 def render_accumulate_fused(world, ro, rd, key, n_samples, max_bounces, sample_offset=0,
-                            parity=True, jitter_step=None, debug=None):
+                            parity=True, jitter_step=None, debug=None, tile_base=0):
     """The facade's fused loop: ``FUSED_SLAB_TILES`` RNG tiles of rays per
-    call, with the global RNG tile numbering ``tile_base = s0 // 8192``."""
+    call, with the global RNG tile numbering ``tile_base + s0 // 8192``."""
     slab = FUSED_SLAB_TILES * RNG_TILE
     parts = [
         render_samples_fused(
             world, ro[s0:s0 + slab], rd[s0:s0 + slab], key, n_samples, max_bounces,
-            sample_offset=sample_offset, parity=parity, tile_base=s0 // RNG_TILE,
+            sample_offset=sample_offset, parity=parity, tile_base=tile_base + s0 // RNG_TILE,
             jitter_step=jitter_step, debug=debug,
         )
         for s0 in range(0, ro.shape[0], slab)

@@ -172,14 +172,20 @@ def render_accumulate(
     init_accum: Optional[torch.Tensor] = None,
     world=None,
     tile_size: int = DEFAULT_TILE,
+    ro: Optional[torch.Tensor] = None,
+    rd: Optional[torch.Tensor] = None,
+    tile_base: int = 0,
 ) -> torch.Tensor:
     """Accumulate samples ``sample_offset .. sample_offset + n_samples`` on
     the scene's device; returns the (N, 3) contribution sums, plus
     ``init_accum`` when given (added after the chunk's sum, as JAX adds
     it, for checkpoint/resume chunking).  ``world`` is an optional
     pre-baked :class:`..scene.types.WorldTriangles`; ``tile_size`` is the
-    per-bounce engines' RNG tile."""
-    ro, rd = generate_rays(camera, resolution, device=scene.device)
+    per-bounce engines' RNG tile.  ``ro``/``rd`` replace the camera's rays
+    (a rank's share of them, whose RNG tiles are numbered from
+    ``tile_base``)."""
+    if ro is None:
+        ro, rd = generate_rays(camera, resolution, device=scene.device)
     step = jitter_step(camera, resolution)
     if engine in ("fused", "binned"):
         if world is None:
@@ -187,14 +193,15 @@ def render_accumulate(
         engine = effective_engine(engine, world, step is not None)
     if engine == "binned":
         acc = render_accumulate_binned(world, ro, rd, key, n_samples, max_bounces,
-                                       sample_offset=sample_offset, parity=parity)
+                                       sample_offset=sample_offset, parity=parity,
+                                       tile_base=tile_base)
     elif engine == "fused":
         acc = render_accumulate_fused(world, ro, rd, key, n_samples, max_bounces,
                                       sample_offset=sample_offset, parity=parity,
-                                      jitter_step=step)
+                                      jitter_step=step, tile_base=tile_base)
     else:
         tracer = _make_tracer(scene, engine, world=world)
-        acc = _render_tile(tracer, ro, rd, 0, key, n_samples, max_bounces, parity,
+        acc = _render_tile(tracer, ro, rd, tile_base, key, n_samples, max_bounces, parity,
                            jitter_step=step, tile_size=tile_size, sample_offset=sample_offset)
     return acc if init_accum is None else acc + init_accum
 

@@ -20,6 +20,7 @@ import numpy as np
 
 from .. import constants
 from ..io.obj import ObjMesh, load_obj
+from ..io.ply import load_ply
 from .grid import build_uniform_grid, grids_to_ell
 from .types import Material, MaterialType, SceneHost
 
@@ -87,7 +88,11 @@ class SceneBuilder:
         return len(self._meshes) - 1
 
     def add_mesh_file(self, path: str, scale: float = constants.BASE_MODEL_SCALE) -> int:
-        """Load a pre-triangulated OBJ file (:func:`..io.obj.load_obj`)."""
+        """Load a mesh file by extension: ``.ply`` (:func:`..io.ply.load_ply`)
+        or else a pre-triangulated OBJ (:func:`..io.obj.load_obj`), as the
+        JAX package's builder dispatches."""
+        if path.lower().endswith(".ply"):
+            return self.add_mesh(load_ply(path, scale=scale))
         return self.add_mesh(load_obj(path, scale=scale))
 
     def add_instance(

@@ -45,8 +45,8 @@ the sketch's ``translate:[...]`` lines already use):
 Entity blocks become mesh+instance pairs; material blocks define named
 materials (DIFFUSE/SPECULAR/REFLECTIVE/REFRACTIVE/EMISSIVE/COAT/METAL,
 matching the reference enum ``Primitive.h:70-79``).  Transform composition
-is glm-style T * Rz * Ry * Rx * S.  MESH files are OBJ (the port has no
-PLY reader yet).
+is glm-style T * Rz * Ry * Rx * S.  MESH files are OBJ or PLY, by
+extension (``SceneBuilder.add_mesh_file``).
 """
 
 from __future__ import annotations

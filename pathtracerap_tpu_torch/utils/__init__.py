@@ -3,10 +3,11 @@ from .failure import (
     FaultInjector,
     Heartbeat,
     InjectedFault,
+    liveness_probe,
     run_with_recovery,
 )
 from .metrics import RenderMetrics, MetricsLogger
-from .profiling import profile_trace, annotate
+from .profiling import profile_trace, annotate, sync_device
 
 __all__ = [
     "RenderCheckpoint",
@@ -15,9 +16,11 @@ __all__ = [
     "FaultInjector",
     "Heartbeat",
     "InjectedFault",
+    "liveness_probe",
     "run_with_recovery",
     "RenderMetrics",
     "MetricsLogger",
     "profile_trace",
     "annotate",
+    "sync_device",
 ]

@@ -13,12 +13,13 @@ crash at iteration 499/500 loses the whole render.  This module supplies:
   checkpointed atomically, any exception reloads the last checkpoint and
   retries, and because the sample RNG is stateless and counter-based, a
   resumed run is bit-identical to an unbroken one.
+* **Collective liveness** -- :func:`liveness_probe` all-reduces a ones
+  tensor over a ``torch.distributed`` group (the port's counterpart of
+  JAX's ``shard_map`` psum over the device mesh) and returns how many
+  ranks answered.
 * **Fault injection** -- :class:`FaultInjector` deterministically raises at
   a chosen chunk (or via ``PTAP_FAULT_INJECT_AT``) so the recovery path is
   itself testable.
-
-JAX's collective ``liveness_probe`` (a ``shard_map`` psum over the device
-mesh) belongs to the port's parallel layer and is not here yet.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from .checkpoint import RenderCheckpoint, load_checkpoint, save_checkpoint
 
@@ -84,6 +86,25 @@ class Heartbeat:
             if hb is None or (now - hb["ts"]) > timeout_s:
                 stale.append(hid)
         return stale
+
+
+# ------------------------------------------------------- collective liveness
+
+
+def liveness_probe(group=None) -> int:
+    """All-reduce a ones tensor over ``group`` (default: the default
+    process group); returns the number of ranks that answered, 1 without an
+    initialized group.  With a hung peer the collective blocks: run it
+    under a caller-side deadline.  Under ``gloo`` the tensor lies on the
+    host, under ``nccl`` on this rank's card."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    device = "cpu" if dist.get_backend(group) == "gloo" else torch.device(
+        "cuda", torch.cuda.current_device())
+    ones = torch.ones(1, device=device)
+    dist.all_reduce(ones, op=dist.ReduceOp.SUM, group=group)
+    return int(ones.item())
 
 
 # --------------------------------------------------------------- fault inject

@@ -6,7 +6,9 @@
 * :func:`annotate` names a scope: a ``record_function`` range in that trace
   and, while a card is in use, an NVTX range;
 * :func:`device_memory_report` gives each card's allocator use and size,
-  ``{}`` without a card.
+  ``{}`` without a card;
+* :func:`sync_device` waits for a card's queued work (nothing on the CPU),
+  so that a wall clock read after it holds that work.
 
 JAX's ``enable_compile_cache`` has no counterpart: the port compiles
 nothing at run time but its kernels, which ``kernels/_build.py`` caches by
@@ -51,6 +53,13 @@ def annotate(name: str):
                 yield
         else:
             yield
+
+
+def sync_device(device) -> None:
+    """Wait for ``device``'s queued work when it is a card."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def device_memory_report() -> dict:

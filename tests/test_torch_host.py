@@ -1,5 +1,5 @@
 """The port's copies of the JAX package's host modules (``constants``,
-``config``, ``io.bmp``, ``io.obj``) against the originals."""
+``config``, ``io.bmp``, ``io.obj``, ``io.ply``) against the originals."""
 
 import dataclasses
 import os
@@ -11,8 +11,9 @@ from pathtracerap_tpu import config as jconfig
 from pathtracerap_tpu import constants as jconstants
 from pathtracerap_tpu.io import bmp as jbmp
 from pathtracerap_tpu.io import obj as jobj
+from pathtracerap_tpu.io import ply as jply
 from pathtracerap_tpu_torch import config, constants
-from pathtracerap_tpu_torch.io import bmp, obj
+from pathtracerap_tpu_torch.io import bmp, obj, ply
 
 MESHES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "assets", "meshes")
@@ -62,3 +63,19 @@ def test_load_obj_arrays_equal(name):
     for f in dataclasses.fields(ref):
         np.testing.assert_array_equal(getattr(port, f.name), getattr(ref, f.name), err_msg=f.name)
     assert port.num_triangles == ref.num_triangles > 0
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_ply_bytes_and_arrays_equal(tmp_path, binary):
+    """A committed mesh written as PLY by both packages: the same bytes,
+    and the same arrays loaded back by both."""
+    mesh = obj.load_obj(os.path.join(MESHES, "blender_monkey.obj"))
+    a, b = tmp_path / "port.ply", tmp_path / "jax.ply"
+    ply.save_ply(str(a), mesh, binary=binary)
+    jply.save_ply(str(b), jobj.load_obj(os.path.join(MESHES, "blender_monkey.obj"),
+                                        backend="python"), binary=binary)
+    assert a.read_bytes() == b.read_bytes()
+    port, ref = ply.load_ply(str(a)), jply.load_ply(str(a))
+    for f in dataclasses.fields(ref):
+        np.testing.assert_array_equal(getattr(port, f.name), getattr(ref, f.name), err_msg=f.name)
+    assert port.num_triangles == mesh.num_triangles > 0

@@ -3,7 +3,8 @@ has none.  It imports nothing of the JAX package either, not even its
 jax-free host modules: it keeps its own copies (``tests/test_torch_host.py``
 holds them equal).  That covers its utilities (checkpoint/resume, metrics,
 profiling, debug checks), its profiling scripts and kernels, the parity DDA
-engine, scene files and the AOV visualizer."""
+engine, scene files, the AOV visualizer, the command line, the data-parallel
+layer, the PLY loader and the scalar oracle."""
 
 import os
 import re
@@ -77,6 +78,21 @@ assert (hits.t < 9999999.0).any()
 with tempfile.TemporaryDirectory() as tmp:
     assert len(write_aov_bmps(pscene, pcfg, tmp)) == 7
 assert build_uniform_grid(np.zeros((1, 3, 3), np.float32), np.zeros(3), np.ones(3)).dims == (25, 25, 25)
+# the command line, the data-parallel layer (one rank), the PLY loader and the oracle
+import contextlib
+from pathtracerap_tpu_torch import cli
+from pathtracerap_tpu_torch.io.ply import load_ply, save_ply
+from pathtracerap_tpu_torch.oracle import render_scalar
+from pathtracerap_tpu_torch.parallel import default_mesh, render_image_dp
+from pathtracerap_tpu_torch.parallel.dryrun import run_local_ranks
+from pathtracerap_tpu_torch.utils.failure import liveness_probe
+with contextlib.redirect_stdout(io.StringIO()) as info:
+    assert cli.main(["info", "--scene", "scenes/glass_sphere.scn", "--device", "cpu"]) == 0
+assert '"models"' in info.getvalue()
+cscene = build_reference_scene().to_device("cpu")
+dcfg = RenderConfig(resolution=(16, 8), samples_per_pixel=1, max_bounces=2, engine="fused")
+dp = render_image_dp(cscene, dcfg, mesh=default_mesh("cpu"))
+assert torch.equal(dp, Renderer(cscene, dcfg, device="cpu").render()) and liveness_probe() == 1
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """

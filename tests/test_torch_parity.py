@@ -29,16 +29,19 @@ from pathtracerap_tpu.config import CameraConfig as JCamera
 from pathtracerap_tpu.config import RenderConfig as JRenderConfig
 from pathtracerap_tpu.ops import intersect as JI
 from pathtracerap_tpu.ops.rng import sample_uniforms
-from pathtracerap_tpu.oracle.reference import render_scalar
+from pathtracerap_tpu.oracle.reference import render_scalar as jax_render_scalar
 from pathtracerap_tpu.render import debug_viz as JV
 from pathtracerap_tpu.render.camera import generate_rays as jax_generate_rays
 from pathtracerap_tpu.render.wavefront import render_sample as jax_render_sample
 from pathtracerap_tpu.scene.build import build_cornell_box_scene as jax_cornell
 from pathtracerap_tpu.scene.build import build_reference_scene as jax_reference
 from pathtracerap_tpu.scene.dsl import load_scene_file as jax_load_scene_file
-from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer, convert, read_bmp
+from pathtracerap_tpu_torch import (
+    CameraConfig, RenderConfig, Renderer, build_cornell_box_scene, convert, read_bmp,
+)
 from pathtracerap_tpu_torch.bench_suite import render_gridparity
 from pathtracerap_tpu_torch.kernels.dda import grid_trace
+from pathtracerap_tpu_torch.oracle.reference import render_scalar
 from pathtracerap_tpu_torch.ops import intersect as PI
 from pathtracerap_tpu_torch.ops.rng import prng_key
 from pathtracerap_tpu_torch.render.debug_viz import render_aovs, write_aov_bmps
@@ -219,7 +222,11 @@ def test_render_sample_parity_matches_jax_and_oracle(scenes):
                        parity=True).numpy()
     np.testing.assert_allclose(pc, jc, rtol=0, atol=1e-5)
     uniforms = np.stack([np.asarray(sample_uniforms(key, 0, 5 - b, n)) for b in range(5)])
-    expect = render_scalar(jax_cornell(), np.asarray(ro), np.asarray(rd), uniforms, 5)
+    expect = render_scalar(build_cornell_box_scene(), np.asarray(ro), np.asarray(rd), uniforms, 5)
+    # the port's oracle on the port's SceneHost is JAX's on JAX's
+    np.testing.assert_array_equal(
+        expect[:64], jax_render_scalar(jax_cornell(), np.asarray(ro)[:64], np.asarray(rd)[:64],
+                                       uniforms[:, :64], 5))
     close = np.all(np.abs(pc - expect) < 5e-3, axis=1)
     assert close.mean() >= 0.995, f"only {close.mean():.3f} of pixels match the oracle"
     np.testing.assert_allclose(pc[close], expect[close], atol=5e-3)
