@@ -65,7 +65,24 @@ and read just after:
   spp bit-equal to the single-process render, the sharded ``mat_color``
   step (``overlap_chunks`` 1 and 2) within rtol 1e-5 of the one-rank step,
   and the liveness probe; and the glass scene in quality mode against its
-  golden.
+  golden;
+* the geometry ring (``parallel/geometry.py``) in the same two-rank job:
+  the reference scene at 1000x800 x 2 spp x 5 bounces through the fused
+  ring, and the suite's megascene (358,824 triangles, 351 blocks a shard)
+  at its suite settings through the fused and the dense ring, each bit for
+  bit against one process's per-bounce ``pallas`` render at the same tile
+  (each rank's wall, launches of kernel 1 or 5, heavy-pack bytes against
+  the world's and transfers; the megascene's shard rotated alone beside
+  ``comm_model``); the ring ``mat_color`` step at 1000x800 x 2 spp x 5 and
+  the re-baking ``vertex_pos`` step on the Cornell box at 200x160 x 2 spp
+  x 3 against the single-process sum-loss step, and the dry run's geometry
+  half (``parallel/dryrun.py::geometry_half``); each ring render's card
+  memory held after the bake against the tables and one shard; the native
+  host library (``backend="native"``, built from the checkout with g++ in
+  the build phase) against numpy on the reference assets' OBJ loads, the
+  parity scene's, the highpoly blob's and the megascene's grids and the
+  1000x800 BMP; and ``python -m pathtracerap_tpu_torch.parallel.dryrun``
+  started in a process of its own.
 
 Kernels 1 to 4 (``csrc/trace_list.cu``, ``csrc/bounce.cu``,
 ``csrc/bounce_trace.cu``, ``csrc/megakernel.cu``) must be bit for bit
@@ -124,6 +141,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -207,6 +225,24 @@ GLASS_SCENE = os.path.join(ROOT, "scenes", "glass_sphere.scn")
 GLASS_GOLDEN = os.path.join(ROOT, "assets", "golden", "glass_sphere.bmp")
 GLASS_RES, GLASS_SPP, GLASS_BOUNCES = (96, 72), 8, 6  # tests/test_refraction.py:150
 GLASS_MAD, GLASS_CORR = 0.04, 0.97
+# the geometry ring (parallel/geometry.py), in the same two-rank job: renders
+# name -> (scene, resolution, spp, bounces, engine); the reference scene at
+# the data-parallel render's settings, the megascene at the suite's
+RING_RENDERS = {
+    "reference_fused": ("reference", RESOLUTION, 2, 5, "fused"),
+    "megascene_fused": ("megascene", (512, 512), 2, 6, "fused"),
+    "megascene_dense": ("megascene", (512, 512), 2, 6, "dense"),
+}
+RING_TILE = 8192  # the ring's RNG tile, and its one-process counterparts'
+# train steps name -> (scene, resolution, spp, bounces, tile, params, parity, target, seed)
+RING_STEPS = {
+    "mat_color": ("reference", RESOLUTION, 2, 5, RING_TILE, ("mat_color",), True, 0.0, 0),
+    "vertex_pos": ("cornell", (200, 160), 2, 3, 4000, ("mat_color", "vertex_pos"), False, 0.3, 2),
+}
+RING_ROTATIONS = 10  # transfers of the megascene's fused shard timed alone
+RING_ATOL = 1e-5  # the fused ring against the dense one, outside the counted pixels
+RING_PHANTOM_SHARE = 1e-3  # the share of pixels the two rings may differ on (phantom accepts)
+NATIVE_REPS = 3  # the native host library: the fastest of this many calls of each backend
 
 
 # the device timer (cuda_ms): torch.cuda._sleep spins this many SM clocks a
@@ -2828,12 +2864,267 @@ def rank_job(prefix: str) -> int:
         res[f"step_chunks{chunks}"] = {"wall_s": time.perf_counter() - t0, "loss": float(loss),
                                        **_counts()}
         arrays[f"mat_color_chunks{chunks}"] = new["mat_color"].cpu().numpy()
+    res["ring"] = ring_rank(mesh, dev, arrays)
     with open(f"{prefix}.rank{mesh.rank}.json", "w") as f:
         json.dump(res, f)
     if mesh.rank == 0:
         np.savez(f"{prefix}.npz", **arrays)
     dist.destroy_process_group()
     return 0
+
+
+def _ring_scene(name: str, dev):
+    from pathtracerap_tpu_torch import build_cornell_box_scene, build_reference_scene
+    from pathtracerap_tpu_torch.bench_suite import suite_configs
+
+    if name == "megascene":
+        return suite_configs()["megascene"]["scene"]().to_device(dev)
+    return (build_reference_scene() if name == "reference" else build_cornell_box_scene()).to_device(dev)
+
+
+def _ring_config(scene_name: str, res, spp: int, bounces: int):
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+
+    camera = _ROOM_CAMERA if scene_name == "megascene" else CameraConfig()
+    return RenderConfig(resolution=res, samples_per_pixel=spp, max_bounces=bounces, camera=camera,
+                        engine="pallas")
+
+
+def ring_rank(mesh, dev, arrays) -> dict:
+    """One rank's geometry-ring part of the rank job: each of RING_RENDERS
+    through ``render_image_geometry_sharded`` (its wall, launches, heavy-pack
+    bytes and transfers), the megascene's fused shard rotated
+    RING_ROTATIONS times alone, and each of RING_STEPS through
+    ``make_geometry_sharded_train_step``, and the dry run's geometry half
+    (``parallel/dryrun.py::geometry_half``) on the Cornell box.  Each render
+    also reports its card memory: the bytes held once the world is dropped
+    (``held_bytes``) and the peak over the bake and the render, both from
+    the allocated bytes just before the render."""
+    import torch
+    import torch.distributed as dist
+
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.diff import extract_params
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.parallel import geometry as G
+    from pathtracerap_tpu_torch.parallel.dryrun import CAMERA, geometry_half
+    from pathtracerap_tpu_torch.parallel.sharding import _payload
+
+    out = {}
+    scenes = {name: _ring_scene(name, dev) for name in ("reference", "megascene", "cornell")}
+    for name, (scene_name, res, spp, bounces, engine) in RING_RENDERS.items():
+        cfg = _ring_config(scene_name, res, spp, bounces)
+        stats = {}
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        img = G.render_image_geometry_sharded(scenes[scene_name], cfg, mesh=mesh,
+                                              tile_size=RING_TILE, engine=engine, stats=stats)
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0, **stats, **_counts(),
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev) - before}
+        arrays[f"ring_{name}"] = img.cpu().numpy()
+
+    world = G.ring_bake(scenes["megascene"], mesh.world_size)
+    ring = G.ShardRing(G.ring_shard(world, mesh.rank, mesh.world_size), mesh)
+    del world
+    payload = _payload(ring.own.flat(), mesh)
+    ring.rotate(payload)  # the first transfer sets up the pair
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(RING_ROTATIONS):
+        ring.rotate(payload)
+    transfer = (time.perf_counter() - t0) / RING_ROTATIONS
+    t0 = time.perf_counter()
+    for _ in range(RING_ROTATIONS):
+        ring.rotate(payload).to(dev)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / RING_ROTATIONS
+    out["rotation"] = {"payload_bytes": payload.numel() * payload.element_size(),
+                       "transfer_ms": transfer * 1e3, "transfer_and_upload_ms": step * 1e3,
+                       "transfer_gb_s": payload.numel() * payload.element_size() / transfer / 1e9}
+    del ring, payload
+
+    for name, (scene_name, res, spp, bounces, tile, names, parity, target, seed) in RING_STEPS.items():
+        scene = scenes[scene_name]
+        camera = CameraConfig(**CORNELL_CAMERA) if scene_name == "cornell" else CameraConfig()
+        step_fn = G.make_geometry_sharded_train_step(scene, camera, res, spp, bounces, mesh=mesh,
+                                                     tile_size=tile, parity=parity,
+                                                     param_names=names)
+        params = extract_params(scene, names)
+        tgt = torch.full((res[0] * res[1], 3), target, device=dev)
+        torch.cuda.synchronize()
+        dist.barrier()
+        _zero_counts()
+        t0 = time.perf_counter()
+        loss, new = step_fn(params, tgt, prng_key(seed, dev))
+        torch.cuda.synchronize()
+        out[f"step_{name}"] = {"wall_s": time.perf_counter() - t0, "loss": loss.item(), **_counts()}
+        for k, v in new.items():
+            arrays[f"ring_step_{name}_{k}"] = v.cpu().numpy()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["dryrun_geometry"] = geometry_half(scenes["cornell"], CameraConfig(**CAMERA), mesh)
+    out["dryrun_geometry"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ring_phases(dev, ranks, arrays) -> dict:
+    """The geometry ring's two-rank results (``ring_rank``) against this
+    single process: ``ring_render`` (the reference scene's fused ring bit
+    for bit against the per-bounce pallas render at the same tile; the
+    megascene's fused ring the same, its dense ring bit for bit against the
+    pallas render of the world without a pack, and the two rings against
+    each other within RING_ATOL outside the pixels counted apart, with the
+    primaries whose winners differ attributed to phantom accepts; every rank's
+    launches of B1 or B5, its heavy-pack bytes against the world's, its
+    transfers; the rotation alone beside ``comm_model``'s estimate) and
+    ``ring_train_step`` (each step's loss within rtol 1e-5 and parameters
+    within rtol 1e-4 of the single-process sum-loss step)."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
+    from pathtracerap_tpu_torch.kernels.trace import dense_inputs, trace_pallas
+    from pathtracerap_tpu_torch.ops.plucker import bake_world_triangles
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.parallel import comm_model
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+    from pathtracerap_tpu_torch.render.wavefront import render_accumulate
+
+    note = "the ranks share one card: these walls and transfers say nothing of scaling"
+    render = {"note": note, "world_size": DP_RANKS, "tile_size": RING_TILE}
+    scenes = {name: _ring_scene(name, dev) for name in ("reference", "megascene", "cornell")}
+    singles = {}
+    for name, (scene_name, res, spp, bounces, engine) in RING_RENDERS.items():
+        cfg = _ring_config(scene_name, res, spp, bounces)
+        scene = scenes[scene_name]
+        world = bake_world_triangles(scene, fused_tile=512 if engine == "fused" else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = render_accumulate(scene, prng_key(cfg.seed, dev), cfg.camera, res, spp, bounces,
+                                engine="pallas", tile_size=RING_TILE, world=world)
+        single = (acc / spp).reshape(res[1], res[0], 3).cpu().numpy()
+        torch.cuda.synchronize()
+        singles[name] = single
+        ring_img = arrays[f"ring_{name}"]
+        diff = np.abs(ring_img - single)
+        row = {"engine": engine, "resolution": list(res), "spp": spp, "bounces": bounces,
+               "single_process_s": time.perf_counter() - t0,
+               "bit_equal": bool(np.array_equal(ring_img, single)),
+               "max_abs_diff": float(diff.max()),
+               "pixels_over_atol": int((diff.max(axis=-1) > RING_ATOL).sum()),
+               "image_mean": float(ring_img.mean()), "ranks": []}
+        check(np.isfinite(ring_img).all() and 0.01 < row["image_mean"] < 1.0,
+              f"{name}: ring image finite, mean {row['image_mean']}")
+        calls = 1 + spp * (bounces - 1)
+        for r, k in enumerate(ranks):
+            c = k["ring"][name]
+            kernel = "trace_list_launches" if engine == "fused" else "nearest_hit_launches"
+            check(c[kernel] > 0 and c["plain_calls"] == 0,
+                  f"{name}: rank {r} launched its engine's kernel, no plain version")
+            block = 512 * 24 * 4 + 8 * 4 if engine == "fused" else 0
+            check(c["shard_bytes"] <= c["world_sharded_bytes"] / DP_RANKS + block,
+                  f"{name}: rank {r} holds {c['shard_bytes']} bytes of the pack's "
+                  f"{c['world_sharded_bytes']}")
+            # measured: the card memory the rank's tensors still ask for
+            # once the world is dropped, against the tables, 1/D of the
+            # sharded fields and one block
+            held_bound = c["tables_bytes"] + c["world_sharded_bytes"] / DP_RANKS + block
+            check(c["held_bytes"] <= held_bound,
+                  f"{name}: rank {r} holds {c['held_bytes']} bytes of card memory after the bake, "
+                  f"over the tables and one shard's {held_bound}")
+            check(c["transfers"] == calls * (DP_RANKS - 1),
+                  f"{name}: rank {r} made {c['transfers']} transfers for {calls} trace calls")
+            model = comm_model(res, DP_RANKS, spp, bounces, world_triangles=c["world_triangles"],
+                               ring_trace_calls_per_device=calls)["geometry_ring_pack_rotation"]
+            row["ranks"].append({
+                "wall_s": c["wall_s"], "trace_list_launches": c["trace_list_launches"],
+                "nearest_hit_launches": c["nearest_hit_launches"],
+                "shard_bytes": c["shard_bytes"], "world_sharded_bytes": c["world_sharded_bytes"],
+                "world_heavy_bytes": c["world_heavy_bytes"], "tables_bytes": c["tables_bytes"],
+                "held_bytes": c["held_bytes"], "held_bound_bytes": held_bound,
+                "held_allocated_bytes": c["held_allocated_bytes"],
+                "peak_bytes": c["peak_bytes"], "transfers": c["transfers"],
+                "bytes_sent": c["bytes_sent"], "transfer_s": c["transfer_s"],
+                "comm_model_bytes": model["bytes_per_device"], "comm_model_nvlink_ms":
+                    model["nvlink_ms"], "comm_model_ib_ms": model["ib_ms"]})
+        render[name] = row
+    check(render["reference_fused"]["bit_equal"],
+          "the reference scene's fused ring equals the one-process pallas render bit for bit")
+    check(render["megascene_fused"]["bit_equal"],
+          "the megascene's fused ring equals the one-process pallas render bit for bit")
+    _, mres, mspp, mbounces, _ = RING_RENDERS["megascene_fused"]
+    pixels = mres[0] * mres[1]
+    check(render["megascene_dense"]["bit_equal"],
+          "the megascene's dense ring equals the pallas render without a pack bit for bit")
+    # the two rings: differences beyond RING_ATOL are counted apart; the
+    # primaries' winners that differ are attributed to phantom accepts
+    d = np.abs(arrays["ring_megascene_fused"] - arrays["ring_megascene_dense"]).max(axis=-1)
+    fd = {"pixels_over_atol": int((d > RING_ATOL).sum()), "max_abs_diff": float(d.max()),
+          "mean_abs_diff": float(d.mean())}
+    mega = scenes["megascene"]
+    wf = bake_world_triangles(mega)
+    wd = bake_world_triangles(mega, fused_tile=None)
+    cfg = _ring_config("megascene", mres, mspp, mbounces)
+    ro, rd = generate_rays(cfg.camera, cfg.resolution, device=dev)
+    rec_f, idx_f = trace_pallas(wf, ro, rd, return_idx=True)
+    rec_d, idx_d = trace_pallas(wd, ro, rd, return_idx=True)
+    w, wo = dense_inputs(ro, rd)
+    sel = ((idx_f != idx_d) | ((rec_f.t < F_MAX) != (rec_d.t < F_MAX))).nonzero()[:, 0]
+    phantom = (_phantoms(wd, w[sel], wo[sel], idx_f[sel])
+               | _phantoms(wd, w[sel], wo[sel], idx_d[sel]))
+    fd["primaries_differing"] = int(sel.numel())
+    fd["primaries_differing_not_phantom"] = int((~phantom).sum())
+    check(fd["pixels_over_atol"] <= RING_PHANTOM_SHARE * pixels,
+          f"the fused ring against the dense one within {RING_ATOL} but for counted pixels: {fd}")
+    render["megascene_fused_vs_dense"] = fd
+    rot = [k["ring"]["rotation"] for k in ranks]
+    model = comm_model(mres, DP_RANKS, 1, 2,
+                       world_triangles=ranks[0]["ring"]["megascene_fused"]["world_triangles"],
+                       ring_trace_calls_per_device=1)["geometry_ring_pack_rotation"]
+    render["rotation_alone"] = {"ranks": rot, "comm_model_one_transfer": model}
+    del wf, wd
+
+    steps = {"note": note}
+    for name, (scene_name, res, spp, bounces, tile, names, parity, target, seed) in RING_STEPS.items():
+        scene = scenes[scene_name]
+        camera = CameraConfig(**CORNELL_CAMERA) if scene_name == "cornell" else CameraConfig()
+        params = extract_params(scene, names)
+        tgt = torch.full((res[0] * res[1], 3), target, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss1, g1 = loss_and_grad(params, scene, tgt, prng_key(seed, dev), camera, res, spp,
+                                  bounces, tile_size=tile, reduce="sum", parity=parity)
+        torch.cuda.synchronize()
+        got = [k["ring"][f"step_{name}"] for k in ranks]
+        row = {"resolution": list(res), "spp": spp, "bounces": bounces, "params": list(names),
+               "parity": parity, "single_process_s": time.perf_counter() - t0,
+               "rank_wall_s": [g["wall_s"] for g in got], "loss": got[0]["loss"],
+               "single_process_loss": loss1.item(),
+               "loss_rel_diff": abs(got[0]["loss"] - loss1.item()) / abs(loss1.item()),
+               "launches": [{key: g[key] for key in g if key.endswith("_launches") and g[key]}
+                            for g in got]}
+        check(row["loss_rel_diff"] <= LOSS_RTOL, f"ring step {name}: loss within rtol 1e-5: {row}")
+        for k in names:
+            ref = (params[k] - 0.05 * g1[k]).cpu().numpy()
+            ring_p = arrays[f"ring_step_{name}_{k}"]
+            row[f"{k}_max_rel_diff"] = float(np.abs(ring_p - ref).max() / np.abs(ref).max())
+            np.testing.assert_allclose(ring_p, ref, rtol=GRAD_RTOL, atol=1e-6, err_msg=k)
+        for g in got:
+            check(g["trace_list_launches"] > 0 and g["plain_calls"] == 0,
+                  f"ring step {name}: every rank launched B1")
+        steps[name] = row
+    geo = [k["ring"]["dryrun_geometry"] for k in ranks]
+    for r, g in enumerate(geo):
+        check(g["ring_image_equal"] and g["ring_step_delta"] > 0 and g["ring_vertex_max_grad"] > 0,
+              f"rank {r}: the dry run's geometry half: {g}")
+    return {"ring_render": render, "ring_train_step": steps, "dryrun_geometry": geo}
 
 
 def data_parallel(dev) -> dict:
@@ -2918,6 +3209,7 @@ def data_parallel(dev) -> dict:
                   and g["plain_calls"] == 0, "every rank's step launched kernels 1 and 3")
         step_res[f"chunks{chunks}"] = row
     out["sharded_train_step"] = step_res
+    out.update(ring_phases(dev, ranks, arrays))
     return out
 
 
@@ -2956,6 +3248,105 @@ def glass_render(dev):
     return res
 
 
+NATIVE_BUILD = {}
+
+
+def _native_build() -> None:
+    """Build and load the native host library (g++), timed, into
+    NATIVE_BUILD: the build phase runs it beside the kernels' nvcc."""
+    from pathtracerap_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    NATIVE_BUILD.update(native_build_s=time.perf_counter() - t0, native_ok=native.available(),
+                        native_library=os.path.relpath(native.library_path(), ROOT),
+                        native_error=native.build_error)
+
+
+def _fastest(fn, reps: int = NATIVE_REPS):
+    """(the fastest wall of ``reps`` calls of ``fn``, its last result)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def native_host(dev) -> dict:
+    """The native host library (``pathtracerap_tpu_torch/native.py``) built
+    from the checkout with g++ and called with ``backend="native"``, against
+    ``backend="python"`` (numpy): the OBJ load of the reference assets, the
+    grid build of every mesh of the parity scene, of
+    ``highpoly_grid_scene()``'s blob and of the megascene, and the 1000x800
+    BMP write in both modes; the outputs equal, each time the fastest of
+    NATIVE_REPS calls."""
+    import numpy as np
+
+    from pathtracerap_tpu_torch import build_reference_scene, native
+    from pathtracerap_tpu_torch.bench_suite import suite_configs
+    from pathtracerap_tpu_torch.io.bmp import quantize_image, write_bmp
+    from pathtracerap_tpu_torch.io.obj import load_obj
+    from pathtracerap_tpu_torch.scene.grid import build_uniform_grid
+
+    res = {"build_s": NATIVE_BUILD["native_build_s"], "library": NATIVE_BUILD["native_library"]}
+    check(native.available(), f"the native library builds and loads: {native.build_error}")
+    timings = {}
+    for name in ("enclosing_box.obj", "ceiling_light.obj", "blender_monkey.obj"):
+        path = os.path.join(ROOT, "assets", "meshes", name)
+        t_n, m_n = _fastest(lambda: load_obj(path, backend="native"))
+        t_p, m_p = _fastest(lambda: load_obj(path, backend="python"))
+        for f in ("positions", "normals", "uvs", "triangles", "bbox_min", "bbox_max"):
+            check(np.array_equal(getattr(m_n, f), getattr(m_p, f)), f"{name}: {f} equal")
+        timings[f"obj:{name}"] = {"triangles": m_n.num_triangles, "native_s": t_n, "python_s": t_p}
+
+    def grids(host):
+        for g in range(host.grid_mesh.shape[0]):
+            mi = int(host.grid_mesh[g])
+            ts, te = int(host.mesh_tri_start[mi]), int(host.mesh_tri_end[mi])
+            yield (host.vertex_pos[host.tri_vidx[ts:te]], host.mesh_bbox_min[mi],
+                   host.mesh_bbox_max[mi], tuple(host.grid_dims), ts)
+
+    for name, host in (("parity_scene", build_reference_scene()),
+                       ("highpoly_blob", highpoly_grid_scene()),
+                       ("megascene", suite_configs()["megascene"]["scene"]())):
+        args = list(grids(host))
+        t_n, g_n = _fastest(lambda: [build_uniform_grid(*a, backend="native") for a in args])
+        t_p, g_p = _fastest(lambda: [build_uniform_grid(*a, backend="python") for a in args])
+        for a, b in zip(g_n, g_p):
+            for f in ("voxel_width", "voxel_tri_start", "voxel_tri_count", "tri_indices"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)), f"{name} grid: {f} equal")
+        timings[f"grid:{name}"] = {"grids": len(args), "triangles": sum(a[0].shape[0] for a in args),
+                                   "entries": sum(g.tri_indices.size for g in g_n),
+                                   "native_s": t_n, "python_s": t_p}
+    image = quantize_image(np.random.default_rng(0).uniform(
+        0, 2, (RESOLUTION[1], RESOLUTION[0], 3)).astype(np.float32), 1)
+    os.makedirs(WORK, exist_ok=True)
+    for parity in (True, False):
+        paths = [os.path.join(WORK, f"native_{parity}_{b}.bmp") for b in ("native", "python")]
+        t_n, _ = _fastest(lambda: write_bmp(paths[0], image, parity=parity, backend="native"))
+        t_p, _ = _fastest(lambda: write_bmp(paths[1], image, parity=parity, backend="python"))
+        with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+            check(a.read() == b.read(), f"the BMPs (parity={parity}) are byte-equal")
+        timings[f"bmp:{'parity' if parity else 'standard'}"] = {
+            "resolution": list(RESOLUTION), "native_s": t_n, "python_s": t_p}
+    res["timings"] = timings
+    return res
+
+
+def dryrun_phase(geometry) -> dict:
+    """The dry run: its geometry half (``geometry_half``, each rank's
+    result from the rank job, checked in ``ring_phases``) and ``python -m
+    pathtracerap_tpu_torch.parallel.dryrun --help`` in a process of its own,
+    which shows that the module's entry starts."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pathtracerap_tpu_torch.parallel.dryrun",
+                           "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0 and "--ranks" in proc.stdout,
+          f"the dry run's entry exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return {"entry_wall_s": time.perf_counter() - t0, "geometry": geometry}
+
+
 _T0 = time.perf_counter()
 
 
@@ -2989,8 +3380,12 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
+    host = threading.Thread(target=_native_build)  # g++ beside the nvcc processes
+    host.start()
     _build.library()
-    build = {"seconds": time.perf_counter() - t0}
+    host.join()
+    build = {"seconds": time.perf_counter() - t0, **NATIVE_BUILD}
+    check(NATIVE_BUILD["native_ok"], f"the native library builds and loads: {NATIVE_BUILD}")
     build["ptxas"] = [
         ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln or "Compiling entry" in ln
     ]
@@ -3063,6 +3458,10 @@ def main() -> int:
     phase("sharded_train_step", dp["sharded_train_step"])
     phase("liveness", dp["liveness"])
     phase("glass_render", glass_render(dev))
+    phase("ring_render", dp["ring_render"])
+    phase("ring_train_step", dp["ring_train_step"])
+    phase("native_host", native_host(dev))
+    phase("dryrun", dryrun_phase(dp["dryrun_geometry"]))
     check("jax" not in sys.modules, "jax was never imported")
 
     def entry(name, source, replaces, launches, k, max_abs_err=None, extra=()):
@@ -3093,6 +3492,11 @@ def main() -> int:
 
     pallas = "pathtracerap_tpu/pallas/"
     k4q = k4["traced_jittered"]  # the quality render's launch, its main path
+    # the geometry ring's launches on each rank (B1 in the fused ring, B5 in the dense one)
+    ring = dp["ring_render"]
+    k1_extra["ring_launches_per_rank"] = {
+        name: [r["trace_list_launches"] for r in ring[name]["ranks"]]
+        for name in ("reference_fused", "megascene_fused")}
     kernels = [
         entry("trace_list", "trace_list.cu", pallas + "trace.py:188", mp["trace_list_launches"],
               k1["render_slab"], max(k1[c]["max_abs_err"] for c in K1_CASES), extra=k1_extra),
@@ -3110,7 +3514,9 @@ def main() -> int:
               k5["bounce1"], max(v["max_abs_err"] for v in k5.values() if isinstance(v, dict)),
               extra={**{key: k5[key] for key in sweep + ("group",)},
                      "gate_tests": k5["bounce1"]["gate_tests"],
-                     "dead_wavefront_ms": k5["dead"]["ms"]}),
+                     "dead_wavefront_ms": k5["dead"]["ms"],
+                     "ring_launches_per_rank": {"megascene_dense": [
+                         r["nearest_hit_launches"] for r in ring["megascene_dense"]["ranks"]]}}),
         # the TPU kernels' streamed modes, at the megascene's 701 blocks
         entry("trace_list_701_blocks", "trace_list.cu", pallas + "trace.py:222",
               mega["trace_list_launches"], mega["kernel1_slab0"],

@@ -180,18 +180,23 @@ def geometry_loss(
     return d_err + normal_weight * n_err
 
 
-def loss_and_grad(params: Dict, *args, **kwargs):
-    """``jax.value_and_grad(image_loss)``: (loss, grads), both detached;
-    ``args`` and ``kwargs`` are :func:`image_loss`'s after ``params``.  A
-    parameter the loss does not reach (vertex positions under the parity
-    per-bounce engines, whose color is a pure albedo product) gets a zero
-    gradient, as in JAX."""
+def value_and_grad(loss_fn, params: Dict):
+    """``jax.value_and_grad(loss_fn)(params)``: (loss, grads), both
+    detached.  A parameter the loss does not reach (vertex positions under
+    the parity per-bounce engines, whose color is a pure albedo product)
+    gets a zero gradient, as in JAX."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    loss = image_loss(leaves, *args, **kwargs)
+    loss = loss_fn(leaves)
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     return loss.detach(), {
         k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(leaves.items(), grads)
     }
+
+
+def loss_and_grad(params: Dict, *args, **kwargs):
+    """``jax.value_and_grad(image_loss)``: (loss, grads), both detached;
+    ``args`` and ``kwargs`` are :func:`image_loss`'s after ``params``."""
+    return value_and_grad(lambda p: image_loss(p, *args, **kwargs), params)
 
 
 def make_train_step(

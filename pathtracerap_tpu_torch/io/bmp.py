@@ -1,5 +1,6 @@
 """24-bit BMP writer and reader, byte-compatible with the reference's
-writer (the port's copy of ``pathtracerap_tpu/io/bmp.py``, pure Python).
+writer (the port's copy of ``pathtracerap_tpu/io/bmp.py``): pure Python, or
+the native library's writer (:mod:`..native`), which writes the same bytes.
 
 The reference hand-rolls a 54-byte header and streams rows bottom-up
 (``Renderer.cpp:15-63``).  Parity mode keeps two of its quirks so golden
@@ -29,12 +30,22 @@ def _header(width: int, height: int, image_size: int) -> bytes:
     )
 
 
-def write_bmp(path: str, image: np.ndarray, parity: bool = True) -> None:
+def write_bmp(path: str, image: np.ndarray, parity: bool = True, backend: str = "auto") -> None:
     """Write an (H, W, 3) uint8 image, row 0 = bottom row, already
-    quantized (:func:`quantize_image`)."""
+    quantized (:func:`quantize_image`).
+
+    ``backend``: ``"auto"`` uses the native writer when the library loads
+    (:mod:`..native`) and pure Python otherwise; ``"native"`` requires it
+    (``RuntimeError`` when it does not load); ``"python"`` forces Python.
+    Both write the same bytes."""
     image = np.asarray(image)
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
         raise ValueError("write_bmp expects (H, W, 3) uint8")
+    from .. import native
+
+    if native.use(backend, "BMP"):
+        native.write_bmp_native(path, image, parity)
+        return
     h, w = image.shape[:2]
     if parity:
         rows = image.reshape(h, w * 3).tobytes()  # RGB, unpadded (quirk)

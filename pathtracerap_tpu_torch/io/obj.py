@@ -1,5 +1,6 @@
 """Minimal Wavefront OBJ loader (the port's copy of
-``pathtracerap_tpu/io/obj.py``, pure Python).
+``pathtracerap_tpu/io/obj.py``): pure Python, or the native library's
+parser (:mod:`..native`), which gives the same arrays.
 
 The reference imports meshes through Assimp and asserts every face is a
 triangle (``Scene.cpp:229,281``).  Mirrored import semantics: positions
@@ -11,6 +12,7 @@ index pair, and faces that are not triangles are rejected.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -37,9 +39,23 @@ class ObjMesh:
         return int(self.triangles.shape[0])
 
 
-def load_obj(path: str, scale: float = constants.BASE_MODEL_SCALE) -> ObjMesh:
+def load_obj(path: str, scale: float = constants.BASE_MODEL_SCALE,
+             backend: str = "auto") -> ObjMesh:
     """Parse a pre-triangulated OBJ file; ``ValueError`` on a face that is
-    not a triangle."""
+    not a triangle.
+
+    ``backend``: ``"auto"`` uses the native C++ parser when the library
+    loads (:mod:`..native`) and pure Python otherwise; ``"native"``
+    requires it (``RuntimeError`` when it does not load); ``"python"``
+    forces the pure-Python path.  Both give the same arrays.  A missing
+    file raises ``FileNotFoundError``, except under ``"native"``, whose
+    parser raises ``ValueError`` as JAX's does."""
+    from .. import native
+
+    if native.use(backend, "OBJ") and (backend == "native" or os.path.isfile(path)):
+        pos, nrm, uv, tris, bbmin, bbmax = native.load_obj_native(path, float(scale))
+        return ObjMesh(positions=pos, normals=nrm, uvs=uv, triangles=tris, bbox_min=bbmin,
+                       bbox_max=bbmax)
     raw_v, raw_vn, raw_vt = [], [], []
     corner_map: dict = {}
     positions, normals, uvs, triangles = [], [], [], []

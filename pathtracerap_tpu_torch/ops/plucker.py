@@ -66,12 +66,14 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dot3(v, v))
 
 
-def keeps_pack(n_world_triangles: int) -> bool:
+def keeps_pack(n_world_triangles: int, ring_shards: Optional[int] = None) -> bool:
     """Whether the bake emits the fused pack for a world of this many
     triangles (padding included): JAX's budget of ``PACK_MAX_TRIANGLES``
     (``pathtracerap_tpu/ops/plucker.py:194``).  Above it the world has no
-    pack and every engine routes to the dense ``pallas`` tracer."""
-    return n_world_triangles <= PACK_MAX_TRIANGLES
+    pack and every engine routes to the dense ``pallas`` tracer.  A bake
+    for the geometry ring (``ring_shards``) keeps it at any size: each rank
+    holds only its shard of it."""
+    return ring_shards is not None or n_world_triangles <= PACK_MAX_TRIANGLES
 
 
 def tri_major_ops(fused_ops: torch.Tensor, tri_block: int) -> torch.Tensor:
@@ -132,7 +134,8 @@ def cluster_group_aabb(cluster_aabb: torch.Tensor, n_valid: int) -> torch.Tensor
     return torch.cat([lo_g, hi_g, box.new_zeros((2, lo_g.shape[1]))], dim=0).contiguous()
 
 
-def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) -> WorldTriangles:
+def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512,
+                         ring_shards: Optional[int] = None) -> WorldTriangles:
     """Bake all model instances into a world-space triangle soup, with the
     dense tracer's operands (``edge_mat``, ``plane_mat``, ``cluster_aabb``,
     ``group_aabb``) and, unless ``fused_tile`` is None or the world is
@@ -142,12 +145,22 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
     :class:`WorldTriangles`).  Without a pack the triangle axis is padded
     to ``SUB_BLOCK`` and ``tri_block`` is 0.
 
+    ``ring_shards=D`` bakes for the geometry ring
+    (:mod:`..parallel.geometry`): the triangle axis is padded to ``D *
+    fused_tile`` (``D * SUB_BLOCK`` without a pack), so the packs split
+    into D equal contiguous shards; the pack is kept above the budget; and
+    ``block_aabb`` keeps every block, a block of padding only as a NaN row
+    (which every worklist comparison rejects), where the plain bake drops
+    them.  The real triangles' order and values are the plain bake's.
+
     Differentiable in ``vertex_pos``, ``vertex_nrm``, ``model_to_world``
     and ``mat_color``: the integer parts (Morton codes, the argsorts, the
     static counts) carry no gradient and cut no path one needs, and no
     tensor that may require grad is written in place."""
     if fused_tile is not None and fused_tile % SUB_BLOCK:
         raise ValueError(f"fused_tile must be a multiple of {SUB_BLOCK}, got {fused_tile}")
+    if ring_shards is not None and ring_shards < 1:
+        raise ValueError(f"ring_shards must be at least 1, got {ring_shards}")
     src = scene.world_tri_src.long()
     mdl = scene.world_tri_model.long()
     dev = scene.device
@@ -221,9 +234,9 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
 
     tw = a.shape[0]
     n_world_valid = int(scene.n_world_valid) or tw
-    if not keeps_pack(tw):
+    if not keeps_pack(tw, ring_shards):
         fused_tile = None
-    t_pad = _round_up(tw, fused_tile or SUB_BLOCK)
+    t_pad = _round_up(tw, (fused_tile or SUB_BLOCK) * (ring_shards or 1))
     pad = t_pad - tw
 
     def padt(x, value=0.0):
@@ -286,7 +299,7 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
         ops_tri = tri_major_ops(fused_ops.detach(), fused_tile)
         # per-block AABBs with the same slack; only the real blocks are
         # kept (an inverted box is always hit under the min/max-swapped
-        # slab test)
+        # slab test), or for the ring every block, padding ones as NaN
         b_min = tri_min.reshape(nb, -1, 3).amin(dim=1)
         b_max = tri_max.reshape(nb, -1, 3).amax(dim=1)
         b_diag = _norm(torch.clamp(b_max - b_min, min=0.0))[:, None]
@@ -295,7 +308,11 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512) ->
             [b_min - b_pad, b_max + b_pad, torch.zeros((nb, 2), device=dev)], dim=-1
         )  # (nb, 8)
         nb_real = -(-n_world_valid // fused_tile)
-        block_aabb = block_aabb[:nb_real].contiguous()
+        if ring_shards is None:
+            block_aabb = block_aabb[:nb_real].contiguous()
+        else:
+            row = torch.arange(nb, device=dev)[:, None]
+            block_aabb = torch.where(row < nb_real, block_aabb, torch.nan).contiguous()
         # 128-triangle sub-block AABBs, row-major; pure-padding rows are
         # NaN so every worklist comparison rejects them
         nsb_real = -(-n_world_valid // SUB_BLOCK)

@@ -7,8 +7,8 @@ conservatively into the voxels it overlaps (``computeVoxelIndex``,
 entries are ``tri_indices[start : start + count]``, in ascending triangle
 order, as the reference's triangle-major loop fills them
 (``Scene.cpp:349-375``).  The stamping is vectorized numpy (repeat, decode,
-stable sort by voxel); the JAX package's native C++ builder has no
-counterpart here.
+stable sort by voxel), or the native library's two-pass counting sort
+(:mod:`..native`), which gives the same arrays.
 """
 
 from __future__ import annotations
@@ -33,10 +33,23 @@ def build_uniform_grid(
     bbox_max: np.ndarray,
     dims: tuple = (25, 25, 25),
     tri_index_base: int = 0,
+    backend: str = "auto",
 ) -> UniformGrid:
     """Build one mesh's grid from its (T, 3, 3) model-space triangles and
     AABB; ``tri_index_base`` is added to the bucket entries so that they
-    are global triangle ids (``Scene.cpp:371``)."""
+    are global triangle ids (``Scene.cpp:371``).
+
+    ``backend``: ``"auto"`` uses the native builder when the library loads
+    (:mod:`..native`) and numpy otherwise; ``"native"`` requires it
+    (``RuntimeError`` when it does not load); ``"python"`` forces numpy.
+    Both give the same arrays."""
+    from .. import native
+
+    if native.use(backend, "grid"):
+        width, starts, counts, indices = native.build_grid_native(
+            tri_verts, bbox_min, bbox_max, dims, tri_index_base)
+        return UniformGrid(voxel_width=width, voxel_tri_start=starts,
+                           voxel_tri_count=counts, tri_indices=indices, dims=dims)
     gx, gy, gz = dims
     n_voxels = gx * gy * gz
     tri_verts = np.asarray(tri_verts, dtype=np.float32)

@@ -1,7 +1,7 @@
 """One rank of the port's multi-process tests on the CPU (the counterpart of
 ``tests/_distributed_worker.py``):
 
-    python tests/_torch_distributed_worker.py OUT_PREFIX
+    python tests/_torch_distributed_worker.py OUT_PREFIX [dp|ring]
 
 with torchrun's variables (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT``) set by :func:`run_job`, which launches the ranks with
@@ -9,7 +9,10 @@ with torchrun's variables (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 localhost port and a deadline.  JAX is blocked: the ranks run the port
 alone, under ``gloo``.  Every rank runs the same collectives; rank 0 writes
 ``OUT_PREFIX.npz`` and ``OUT_PREFIX.json``, and each rank its own slabs to
-``OUT_PREFIX.rank{r}.npz``.
+``OUT_PREFIX.rank{r}.npz``.  The ``dp`` job (the default) runs the
+data-parallel layer; the ``ring`` job the geometry ring
+(``parallel/geometry.py``): its renders and train steps, each rank's
+payloads moving over ``batch_isend_irecv``.
 """
 
 import json
@@ -37,15 +40,71 @@ STEPS = {
 STEP_KW = dict(n_samples=2, max_bounces=3, tile_size=32, engine="pallas")
 STEP_TARGET, STEP_SEED = 0.25, 3
 SAMPLE_PARALLEL = dict(n_samples=8, max_bounces=2, tile_size=512, seed=3)
+# the ring job: renders name -> (engine, spp, bounces, tile_size) at RES, and
+# train steps name -> (params, parity, target, seed), n_samples 2, 3 bounces
+RING_RENDERS = {"fused": ("fused", 4, 3, 64), "dense": ("dense", 4, 3, 64)}
+RING_STEPS = {"mat_color": (("mat_color",), True, 0.0, 0),
+              "vertex_pos": (("mat_color", "vertex_pos"), False, 0.3, 2)}
+RING_STEP_KW = dict(n_samples=2, max_bounces=3, tile_size=64)
 
 
-def run_job(out_prefix: str, n: int = 2, timeout: float = 120.0):
-    """Run this worker as ``n`` ranks; returns [(return code, output)]."""
+def run_job(out_prefix: str, n: int = 2, timeout: float = 120.0, job: str = "dp"):
+    """Run this worker's ``job`` as ``n`` ranks; returns [(return code, output)]."""
     from pathtracerap_tpu_torch.parallel.dryrun import run_local_ranks
 
     env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": ROOT}
-    return run_local_ranks(lambda r: [sys.executable, os.path.abspath(__file__), out_prefix], n,
-                           timeout=timeout, env=env, cwd=ROOT)
+    return run_local_ranks(lambda r: [sys.executable, os.path.abspath(__file__), out_prefix, job],
+                           n, timeout=timeout, env=env, cwd=ROOT)
+
+
+def ring_main(out_prefix: str) -> None:
+    """The ring job: each of RING_RENDERS through
+    ``render_image_geometry_sharded`` (with its stats) and each of
+    RING_STEPS through ``make_geometry_sharded_train_step``."""
+    sys.modules["jax"] = None  # the ranks run the port alone
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, build_cornell_box_scene
+    from pathtracerap_tpu_torch.diff import extract_params
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.parallel import (
+        default_mesh, init_distributed, make_geometry_sharded_train_step,
+        render_image_geometry_sharded,
+    )
+
+    info = init_distributed(device="cpu")
+    mesh = default_mesh("cpu")
+    camera = CameraConfig(**CAMERA)
+    scene = build_cornell_box_scene().to_device("cpu")
+    arrays, meta = {}, {"info": info, "backend": mesh.backend}
+    for name, (engine, spp, bounces, tile) in RING_RENDERS.items():
+        cfg = RenderConfig(resolution=RES, samples_per_pixel=spp, max_bounces=bounces,
+                           camera=camera, engine="pallas")
+        stats = {}
+        arrays[f"ring_{name}"] = render_image_geometry_sharded(
+            scene, cfg, mesh=mesh, tile_size=tile, engine=engine, stats=stats).numpy()
+        meta[f"stats_{name}_rank{mesh.rank}"] = stats
+    n = RES[0] * RES[1]
+    for name, (names, parity, target, seed) in RING_STEPS.items():
+        step = make_geometry_sharded_train_step(scene, camera, RES, mesh=mesh, parity=parity,
+                                                param_names=names, **RING_STEP_KW)
+        loss, new = step(extract_params(scene, names), torch.full((n, 3), target),
+                         prng_key(seed, "cpu"))
+        meta[f"loss_{name}"] = loss.item()
+        for k, v in new.items():
+            arrays[f"step_{name}_{k}"] = v.numpy()
+    # every rank's stats reach rank 0
+    box = [None] * mesh.world_size
+    torch.distributed.all_gather_object(box, meta)
+    if mesh.rank == 0:
+        for other in box:
+            meta.update({k: v for k, v in other.items() if k.startswith("stats_")})
+        np.savez(f"{out_prefix}.npz", **arrays)
+        with open(f"{out_prefix}.json", "w") as f:
+            json.dump(meta, f)
+    torch.distributed.destroy_process_group()
 
 
 def main(out_prefix: str) -> None:
@@ -109,4 +168,4 @@ def main(out_prefix: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    (ring_main if sys.argv[2:3] == ["ring"] else main)(sys.argv[1])

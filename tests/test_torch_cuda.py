@@ -1175,3 +1175,29 @@ def test_prof_argmin_wrapper_checks(dev):
         P.argmin_int(x, bases.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         P.argmin_int(torch.randn(512, 1024, device=dev)[:, ::2], bases)
+
+
+@pytest.mark.parametrize("engine", ["fused", "dense"])
+def test_geometry_ring_on_the_card_equals_one_process(dev, engine):
+    """The geometry ring's pure form for D = 2 and 3 on the card (kernel 1,
+    or kernel 5, on each shard) against one process's per-bounce pallas
+    render of the same tiles, bit for bit; both kernels launch."""
+    from pathtracerap_tpu_torch.parallel import geometry as G
+    from pathtracerap_tpu_torch.render.wavefront import render_accumulate
+
+    scene = build_reference_scene().to_device(dev)
+    cam, res, spp, bounces, tile = CameraConfig(), (64, 48), 2, 3, 512
+    key = prng_key(0, dev)
+    world = bake_world_triangles(scene, fused_tile=512 if engine == "fused" else None)
+    ref = render_accumulate(scene, key, cam, res, spp, bounces, engine="pallas", tile_size=tile,
+                            world=world)
+    launches = TT.nearest_hit_fused if engine == "fused" else TT.nearest_hit
+    for d in (2, 3):
+        ring_world = G.ring_bake(scene, d, engine)
+        before = launches.launches
+        parts = [G.render_rank_ring(scene, key, cam, res, spp, bounces, r, d,
+                                    G.ring_world(ring_world, r, d, engine), tile_size=tile)
+                 for r in range(d)]
+        torch.cuda.synchronize()
+        assert launches.launches > before
+        assert torch.equal(torch.cat(parts)[:res[0] * res[1]], ref), d

@@ -4,7 +4,8 @@ jax-free host modules: it keeps its own copies (``tests/test_torch_host.py``
 holds them equal).  That covers its utilities (checkpoint/resume, metrics,
 profiling, debug checks), its profiling scripts and kernels, the parity DDA
 engine, scene files, the AOV visualizer, the command line, the data-parallel
-layer, the PLY loader and the scalar oracle."""
+layer, the geometry ring, the PLY loader, the scalar oracle and the native
+host library, whose build reads the port's own copy of its source."""
 
 import os
 import re
@@ -93,6 +94,14 @@ cscene = build_reference_scene().to_device("cpu")
 dcfg = RenderConfig(resolution=(16, 8), samples_per_pixel=1, max_bounces=2, engine="fused")
 dp = render_image_dp(cscene, dcfg, mesh=default_mesh("cpu"))
 assert torch.equal(dp, Renderer(cscene, dcfg, device="cpu").render()) and liveness_probe() == 1
+# the geometry ring (one rank) and the native host library
+from pathtracerap_tpu_torch import native
+from pathtracerap_tpu_torch.io.obj import load_obj
+from pathtracerap_tpu_torch.parallel import render_image_geometry_sharded
+gcfg = RenderConfig(resolution=(16, 8), samples_per_pixel=1, max_bounces=2, engine="pallas")
+ring = render_image_geometry_sharded(cscene, gcfg, mesh=default_mesh("cpu"), tile_size=64)
+assert torch.isfinite(ring).all() and ring.max() > 0
+assert load_obj("assets/meshes/ceiling_light.obj", backend="native").num_triangles > 0
 loaded = sorted(m for m in sys.modules if m.startswith("pathtracerap_tpu.") and sys.modules[m])
 print(" ".join(loaded))
 """
@@ -109,6 +118,45 @@ def test_port_renders_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     loaded = set(proc.stdout.split())
     assert loaded <= ALLOWED, loaded - ALLOWED
+
+
+_NATIVE_BUILD = """
+import os, pathlib, sys
+seen = []
+def hook(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        seen.append(os.fsdecode(args[0]))
+    elif event == "subprocess.Popen":
+        seen.extend(os.fsdecode(a) for a in args[1] if isinstance(a, (str, bytes, os.PathLike)))
+sys.addaudithook(hook)
+sys.modules["jax"] = None
+import numpy as np
+from pathtracerap_tpu_torch import native
+from pathtracerap_tpu_torch.io.bmp import write_bmp
+from pathtracerap_tpu_torch.io.obj import load_obj
+from pathtracerap_tpu_torch.scene.grid import build_uniform_grid
+native.BUILD_DIR = pathlib.Path(sys.argv[1])
+assert native.available(), native.build_error
+mesh = load_obj("assets/meshes/ceiling_light.obj", backend="native")
+build_uniform_grid(mesh.positions[mesh.triangles], mesh.bbox_min, mesh.bbox_max, backend="native")
+write_bmp(os.path.join(sys.argv[1], "x.bmp"), np.zeros((2, 2, 3), np.uint8), backend="native")
+print("\\n".join(seen))
+"""
+
+
+def test_native_build_reads_only_the_port(tmp_path):
+    """The native library builds (in a fresh build directory) from the
+    port's ``host/ptap_native.cc``: no file under ``native/`` or the JAX
+    package is opened or handed to the compiler."""
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_BUILD, str(tmp_path)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    seen = [os.path.realpath(os.path.join(ROOT, p)) for p in proc.stdout.splitlines() if p]
+    source = os.path.join(PKG, "host", "ptap_native.cc")
+    assert source in seen  # the hook saw the compiler's input
+    for banned in (os.path.join(ROOT, "native"), os.path.join(ROOT, "pathtracerap_tpu")):
+        assert not [p for p in seen if p == banned or p.startswith(banned + os.sep)], banned
+    assert list(tmp_path.glob("libptap_native_*.so"))
 
 
 def _sources():
