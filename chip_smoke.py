@@ -2064,7 +2064,8 @@ def metrics_and_profile(dev):
     (path,) = glob.glob(os.path.join(trace_dir, "trace_*.json"))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    names = ("trace_primary", "shade", "sort", "bounce", "accumulate")
+    names = ("ptap.render", "ptap.trace_primary", "ptap.rng", "ptap.shade", "ptap.sort",
+             "ptap.bounce", "ptap.accumulate")
     res["annotate_counts"] = {n: sum(1 for e in events if e.get("name") == n) for n in names}
     res["trace_mb"] = os.path.getsize(path) / 1e6
     res["device_kernel_events"] = sum(1 for e in events if e.get("cat") == "kernel")

@@ -34,6 +34,7 @@ from ..ops.math import cross3, dot3, normalize, normalize_guarded
 from ..ops.rng import chunk_uniforms
 from ..render.shade import RayState, gather_contribution, shade
 from ..scene.types import MaterialType, WorldTriangles
+from ..utils.profiling import annotate
 
 F_MAX = constants.FLOAT_MAX
 
@@ -222,8 +223,9 @@ def make_idxs_multi(world, ro_p, rd_p, hits0, idx_col0, key, s0: int, ns: int, n
     pix = torch.arange(ns * n_pad, device=pack.device)
     cols = [idx_col0.repeat(ns)]
     for b in range(1, max_bounces):
-        pack, pix = MK.sort_wavefront(pack, pix, lo, hi)
-        lists, unit = MK.bounce_lists(world, margin, pack, ray_tile)
+        with annotate("ptap.sort"):
+            pack, pix = MK.sort_wavefront(pack, pix, lo, hi)
+            lists, unit = MK.bounce_lists(world, margin, pack, ray_tile)
         tg = MK.bounce_trace(pack, lists, unit, world, ray_tile)
         cols.append(tg[1][MK.inverse_permutation(pix)])  # in the original ray order
         pack = MK.defer_shade_apply(world, pack, tg, u_flat[:, 4 * b:4 * b + 4][pix], parity)
@@ -268,28 +270,31 @@ def render_samples_fused_diff(
     n_pad = ro_p.shape[0]
     sworld = world.detached()
     ro_s, rd_s = ro_p.detach(), rd_p.detach()
-    with torch.no_grad():
-        hits0, idx0 = trace_pallas(sworld, ro_s, rd_s, return_idx=True)
+    binned = binned_forward_active(sworld)
+    with torch.no_grad(), annotate("ptap.train.index_forward"):
+        with annotate("ptap.trace_primary"):
+            hits0, idx0 = trace_pallas(sworld, ro_s, rd_s, return_idx=True)
         idx_col0 = torch.where(hits0.t < F_MAX, idx0 + 1, 0)
+        if not binned:
+            prim = MK.primary_pack(hits0, idx_col0)
+            w16 = ray_vectors(ro_s, rd_s)
 
     def replay_any(idxs, u):
         # the n real rays only: a padding ray's color can be exactly 0, and
         # sqrt's backward there is 0 / 0 = NaN even under a zero cotangent
         # (the JAX forward replays the padding too; ROADMAP queue C)
         idxs, u = idxs[:n], u[:n]
-        if color_only and parity:
-            return replay_color_only(world, idxs, max_bounces)
-        return checkpoint(replay, world, ro, rd_n, idxs, u, max_bounces, parity,
-                          use_reentrant=False)
+        with annotate("ptap.train.replay"):
+            if color_only and parity:
+                return replay_color_only(world, idxs, max_bounces)
+            return checkpoint(replay, world, ro, rd_n, idxs, u, max_bounces, parity,
+                              use_reentrant=False)
 
     acc = torch.zeros((n, 3), dtype=torch.float32, device=ro.device)
-    if not binned_forward_active(sworld):
+    if not binned:
         # single-block scenes: kernel 4's emit_idx stream, one sample a launch
-        with torch.no_grad():
-            prim = MK.primary_pack(hits0, idx_col0)
-            w16 = ray_vectors(ro_s, rd_s)
         for s in range(n_samples):
-            with torch.no_grad():
+            with torch.no_grad(), annotate("ptap.train.index_forward"):
                 u = chunk_uniforms(key, s, max_bounces, n, n_pad, tile_base)
                 _, idxs = MK.sample_fused(w16, prim, u, sworld, max_bounces, parity,
                                           use_primary=True, emit_idx=True)
@@ -298,7 +303,7 @@ def render_samples_fused_diff(
 
     s0 = 0
     for ns in MK.sample_groups(n_samples):
-        with torch.no_grad():
+        with torch.no_grad(), annotate("ptap.train.index_forward"):
             idxs, u = make_idxs_multi(
                 sworld, ro_s, rd_s, hits0, idx_col0, key, s0, ns, n, max_bounces, parity, tile_base
             )

@@ -38,6 +38,7 @@ from ..parallel.sharding import all_reduce_sum, default_mesh, pad_share, rank_sh
 from ..render.camera import generate_rays
 from ..render.wavefront import _make_tracer, _render_tile
 from ..scene.types import SceneDevice
+from ..utils.profiling import annotate
 from .fast import (
     binned_forward_active, parity_hit_from_model, render_samples_fused_diff, trace_pallas_diff,
 )
@@ -187,7 +188,8 @@ def value_and_grad(loss_fn, params: Dict):
     gets a zero gradient, as in JAX."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     loss = loss_fn(leaves)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    with annotate("ptap.train.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     return loss.detach(), {
         k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(leaves.items(), grads)
     }
@@ -214,11 +216,12 @@ def make_train_step(
     ``step(params, target, key) -> (loss, new_params)``, both detached."""
 
     def step(params, target, key):
-        loss, grads = loss_and_grad(
-            params, scene, target, key, camera, resolution, n_samples, max_bounces,
-            tile_size=tile_size, engine=engine, parity=parity,
-        )
-        return loss, {k: p.detach() - lr * grads[k] for k, p in params.items()}
+        with annotate("ptap.train.step"):
+            loss, grads = loss_and_grad(
+                params, scene, target, key, camera, resolution, n_samples, max_bounces,
+                tile_size=tile_size, engine=engine, parity=parity,
+            )
+            return loss, {k: p.detach() - lr * grads[k] for k, p in params.items()}
 
     return step
 
@@ -270,33 +273,34 @@ def make_sharded_train_step(
     tiles_per_chunk = rays_per_chunk // tile_size
 
     def step(params, target_flat, key):
-        target_l = target_flat[lo:lo + per]
-        if target_l.shape[0] < per:
-            target_l = torch.cat([target_l, target_l.new_zeros(per - target_l.shape[0], 3)])
-        names = list(params)
-        loss, grads, pending = None, None, []
+        with annotate("ptap.train.step"):
+            target_l = target_flat[lo:lo + per]
+            if target_l.shape[0] < per:
+                target_l = torch.cat([target_l, target_l.new_zeros(per - target_l.shape[0], 3)])
+            names = list(params)
+            loss, grads, pending = None, None, []
 
-        def merge(wait):
-            nonlocal loss, grads
-            flat = wait()
-            parts = torch.split(flat[1:], [params[k].numel() for k in names])
-            g = {k: p.reshape(params[k].shape) for k, p in zip(names, parts)}
-            loss = flat[0] if loss is None else loss + flat[0]
-            grads = g if grads is None else {k: grads[k] + g[k] for k in names}
+            def merge(wait):
+                nonlocal loss, grads
+                flat = wait()
+                parts = torch.split(flat[1:], [params[k].numel() for k in names])
+                g = {k: p.reshape(params[k].shape) for k, p in zip(names, parts)}
+                loss = flat[0] if loss is None else loss + flat[0]
+                grads = g if grads is None else {k: grads[k] + g[k] for k in names}
 
-        for c in range(overlap_chunks):
-            rows = slice(c * rays_per_chunk, (c + 1) * rays_per_chunk)
-            loss_c, g_c = loss_and_grad(
-                params, scene, target_l[rows], key, camera, resolution, n_samples,
-                max_bounces, tile_size=tile_size, ro=ro_l[rows], rd=rd_l[rows],
-                tile_base=tile_base + c * tiles_per_chunk, reduce="sum", engine=engine,
-                weight=w_l[rows], parity=parity,
-            )
-            flat = torch.cat([loss_c.reshape(1)] + [g_c[k].reshape(-1) for k in names])
-            pending.append(all_reduce_sum(flat, mesh, async_op=True))
-            if len(pending) > 1:  # the previous chunk's reduce ran beside this backward
-                merge(pending.pop(0))
-        merge(pending.pop(0))
-        return loss, {k: params[k].detach() - lr * grads[k] for k in names}
+            for c in range(overlap_chunks):
+                rows = slice(c * rays_per_chunk, (c + 1) * rays_per_chunk)
+                loss_c, g_c = loss_and_grad(
+                    params, scene, target_l[rows], key, camera, resolution, n_samples,
+                    max_bounces, tile_size=tile_size, ro=ro_l[rows], rd=rd_l[rows],
+                    tile_base=tile_base + c * tiles_per_chunk, reduce="sum", engine=engine,
+                    weight=w_l[rows], parity=parity,
+                )
+                flat = torch.cat([loss_c.reshape(1)] + [g_c[k].reshape(-1) for k in names])
+                pending.append(all_reduce_sum(flat, mesh, async_op=True))
+                if len(pending) > 1:  # the previous chunk's reduce ran beside this backward
+                    merge(pending.pop(0))
+            merge(pending.pop(0))
+            return loss, {k: params[k].detach() - lr * grads[k] for k in names}
 
     return step

@@ -307,23 +307,24 @@ def defer_shade_apply(world: WorldTriangles, pack: torch.Tensor, tg, u: torch.Te
     :func:`..render.shade.shade`'s default normalization: the JAX package
     shades the deferred bounce in XLA, not in the kernel."""
     t, col1 = tg
-    hit = col1 > 0
-    h3 = hit[:, None]
-    a = world.attr_rows[:, torch.clamp(col1 - 1, min=0).long()].T  # (N, 16)
-    rec = HitRecord(
-        t=torch.where(hit, t, F_MAX),
-        normal=torch.where(h3, a[:, 0:3], 0.0),
-        mat_type=torch.where(hit, a[:, 3].to(torch.int32), 0),
-        mat_color=torch.where(h3, a[:, 4:7], 0.0),
-        geom_normal=torch.where(h3, a[:, 7:10], 0.0),
-        mat_ri=torch.where(hit, a[:, 11], 1.5),
-    )
-    state = RayState(
-        orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9],
-        remaining=pack[:, 9].to(torch.int32),
-    )
-    s = shade(state, rec, u, parity=parity)
-    return torch.cat([s.orig, s.dir, s.color, s.remaining.to(torch.float32)[:, None]], dim=1)
+    with annotate("ptap.shade"):
+        hit = col1 > 0
+        h3 = hit[:, None]
+        a = world.attr_rows[:, torch.clamp(col1 - 1, min=0).long()].T  # (N, 16)
+        rec = HitRecord(
+            t=torch.where(hit, t, F_MAX),
+            normal=torch.where(h3, a[:, 0:3], 0.0),
+            mat_type=torch.where(hit, a[:, 3].to(torch.int32), 0),
+            mat_color=torch.where(h3, a[:, 4:7], 0.0),
+            geom_normal=torch.where(h3, a[:, 7:10], 0.0),
+            mat_ri=torch.where(hit, a[:, 11], 1.5),
+        )
+        state = RayState(
+            orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9],
+            remaining=pack[:, 9].to(torch.int32),
+        )
+        s = shade(state, rec, u, parity=parity)
+        return torch.cat([s.orig, s.dir, s.color, s.remaining.to(torch.float32)[:, None]], dim=1)
 
 
 def sample_groups(n_samples: int):
@@ -346,18 +347,20 @@ def first_wavefront(world, ro_p, rd_p, hits0, key, s0: int, ns: int, n: int, max
     (ns * n_pad, 10) state pack and its (ns * n_pad, 4 * max_bounces)
     uniforms, rows in (sample, ray) order."""
     n_pad = ro_p.shape[0]
-    u_flat = chunk_uniforms(key, range(s0, s0 + ns), max_bounces, n, n_pad, tile_base)
 
     def big(x):
         return x.repeat((ns,) + (1,) * (x.dim() - 1))
 
-    state = RayState.primary(big(ro_p), big(rd_p), max_bounces)
-    hits = HitRecord(**{f: None if getattr(hits0, f) is None else big(getattr(hits0, f))
-                        for f in HitRecord.__dataclass_fields__})
-    state = shade(state, hits, u_flat[:, 0:4], parity=parity)
-    pack = torch.cat(
-        [state.orig, state.dir, state.color, state.remaining.to(torch.float32)[:, None]], dim=1
-    )
+    with annotate("ptap.shade"):
+        u_flat = chunk_uniforms(key, range(s0, s0 + ns), max_bounces, n, n_pad, tile_base)
+        state = RayState.primary(big(ro_p), big(rd_p), max_bounces)
+        hits = HitRecord(**{f: None if getattr(hits0, f) is None else big(getattr(hits0, f))
+                            for f in HitRecord.__dataclass_fields__})
+        state = shade(state, hits, u_flat[:, 0:4], parity=parity)
+        pack = torch.cat(
+            [state.orig, state.dir, state.color, state.remaining.to(torch.float32)[:, None]],
+            dim=1,
+        )
     return pack, u_flat
 
 
@@ -403,26 +406,25 @@ def render_samples_binned(
         ro_p, rd_p = ro, rd_n
     n_pad = ro_p.shape[0]
     margin = _slab_margin(world.block_aabb)
-    with annotate("trace_primary"):
+    with annotate("ptap.trace_primary"):
         hits0 = trace_pallas(world, ro_p, rd_p, debug=debug)
     lo, hi = scene_morton_bounds(world.block_aabb)
 
     acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
     s0 = sample_offset
     for ns in sample_groups(n_samples):
-        with annotate("shade"):
-            pack, u_flat = first_wavefront(
-                world, ro_p, rd_p, hits0, key, s0, ns, n, max_bounces, parity, tile_base
-            )
+        pack, u_flat = first_wavefront(
+            world, ro_p, rd_p, hits0, key, s0, ns, n, max_bounces, parity, tile_base
+        )
         pix = torch.arange(ns * n_pad, device=dev)
         for b in range(1, max_bounces):
-            with annotate("sort"):
+            with annotate("ptap.sort"):
                 pack, pix = sort_wavefront(pack, pix, lo, hi)
                 lists, unit = bounce_lists(world, margin, pack, ray_tile)
-            with annotate("bounce"):
+            with annotate("ptap.bounce"):
                 pack, _ = bounce(pack, u_flat[:, 4 * b:4 * b + 4][pix], lists, unit, world,
                                  ray_tile, parity, debug)
-        with annotate("accumulate"):
+        with annotate("ptap.accumulate"):
             contrib = torch.sqrt(torch.clamp(pack[:, 6:9], min=0.0))
             acc = acc + contrib[inverse_permutation(pix)].reshape(ns, n_pad, 3).sum(dim=0)
         s0 += ns
@@ -656,7 +658,7 @@ def render_samples_fused(
     acc = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
 
     if jitter_step is None:
-        with annotate("trace_primary"):
+        with annotate("ptap.trace_primary"):
             prim = primary_pack(trace_pallas(world, ro_p, rd_p, debug=debug))
         w16 = ray_vectors(ro_p, rd_p)
         for s0 in range(sample_offset, sample_offset + n_samples, SAMPLE_BATCH):

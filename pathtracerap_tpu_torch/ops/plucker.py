@@ -19,6 +19,7 @@ import torch
 
 from .. import constants
 from ..scene.types import SceneDevice, WorldTriangles
+from ..utils.profiling import annotate
 from .intersect import HitRecord
 from .math import cross3, dot3, inv3x3, normalize, normalize_guarded
 
@@ -161,6 +162,12 @@ def bake_world_triangles(scene: SceneDevice, fused_tile: Optional[int] = 512,
         raise ValueError(f"fused_tile must be a multiple of {SUB_BLOCK}, got {fused_tile}")
     if ring_shards is not None and ring_shards < 1:
         raise ValueError(f"ring_shards must be at least 1, got {ring_shards}")
+    with annotate("ptap.bake"):
+        return _bake(scene, fused_tile, ring_shards)
+
+
+def _bake(scene: SceneDevice, fused_tile: Optional[int], ring_shards: Optional[int]):
+    """The body of :func:`bake_world_triangles`, its arguments checked."""
     src = scene.world_tri_src.long()
     mdl = scene.world_tri_model.long()
     dev = scene.device

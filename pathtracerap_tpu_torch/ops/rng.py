@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
+
 # Uniform draws per (ray, bounce): METAL draws 4 (utility.h:150-157).
 DRAWS_PER_BOUNCE = 4
 RNG_TILE = 8192  # uniforms stream granularity, in rays
@@ -124,16 +126,17 @@ def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile
     samples or bounces."""
     tile_n, nt = _rng_tiling(n, rng_tile)
     dev = key.device
-    samples = torch.as_tensor(sample_index, dtype=torch.int64, device=dev).reshape(-1)
-    depths = max_bounces - torch.arange(max_bounces, dtype=torch.int64, device=dev)
-    tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=dev)
-    k_s = fold_in(key[None, :], samples)  # (ns, 2)
-    k_d = fold_in(k_s[:, None, :], depths)  # (ns, B, 2): bounce_key
-    k_t = fold_in(k_d[:, :, None, :], tiles)  # (ns, B, nt, 2)
-    u = uniform(k_t, tile_n, DRAWS_PER_BOUNCE).reshape(samples.shape[0], max_bounces, -1, 4)
-    if u.shape[2] < n_pad:
-        u = torch.cat([u, u.new_zeros(u.shape[:2] + (n_pad - u.shape[2], 4))], dim=2)
-    return u[:, :, :n_pad].permute(0, 2, 1, 3).reshape(-1, DRAWS_PER_BOUNCE * max_bounces)
+    with annotate("ptap.rng"):
+        samples = torch.as_tensor(sample_index, dtype=torch.int64, device=dev).reshape(-1)
+        depths = max_bounces - torch.arange(max_bounces, dtype=torch.int64, device=dev)
+        tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=dev)
+        k_s = fold_in(key[None, :], samples)  # (ns, 2)
+        k_d = fold_in(k_s[:, None, :], depths)  # (ns, B, 2): bounce_key
+        k_t = fold_in(k_d[:, :, None, :], tiles)  # (ns, B, nt, 2)
+        u = uniform(k_t, tile_n, DRAWS_PER_BOUNCE).reshape(samples.shape[0], max_bounces, -1, 4)
+        if u.shape[2] < n_pad:
+            u = torch.cat([u, u.new_zeros(u.shape[:2] + (n_pad - u.shape[2], 4))], dim=2)
+        return u[:, :, :n_pad].permute(0, 2, 1, 3).reshape(-1, DRAWS_PER_BOUNCE * max_bounces)
 
 
 def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int = 0,
@@ -143,8 +146,9 @@ def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int 
     (:func:`camera_jitter_uniforms` for tiles ``tile_base + k``): rows past
     the drawn tiles are zero, rows past ``n_pad`` are dropped."""
     tile_n, nt = _rng_tiling(n, rng_tile)
-    tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=key.device)
-    u = camera_jitter_uniforms(key, sample_index, tiles, tile_n).reshape(-1, 2)
-    if u.shape[0] < n_pad:
-        u = torch.cat([u, u.new_zeros(n_pad - u.shape[0], 2)])
-    return u[:n_pad]
+    with annotate("ptap.rng"):
+        tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=key.device)
+        u = camera_jitter_uniforms(key, sample_index, tiles, tile_n).reshape(-1, 2)
+        if u.shape[0] < n_pad:
+            u = torch.cat([u, u.new_zeros(n_pad - u.shape[0], 2)])
+        return u[:n_pad]

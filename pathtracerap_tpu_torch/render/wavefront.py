@@ -103,19 +103,18 @@ def render_sample(
     tile, tiles numbered from ``tile_base``, as JAX draws them tile by
     tile."""
     n = ro.shape[0]
-    with annotate("rng"):
-        u = chunk_uniforms(key, sample_index, max_bounces, n, n, tile_base, rng_tile=tile_size)
+    u = chunk_uniforms(key, sample_index, max_bounces, n, n, tile_base, rng_tile=tile_size)
     state = RayState.primary(ro, rd, max_bounces)
     for b in range(max_bounces):
-        with annotate("trace" if b else "trace_primary"):
+        with annotate("ptap.trace" if b else "ptap.trace_primary"):
             if b == 0 and primary_hits is not None:
                 hits = primary_hits
             else:
                 hits = tracer(state.orig, state.dir, alive=state.remaining > 0)
-        with annotate("shade"):
+        with annotate("ptap.shade"):
             # column block b holds depth max_bounces - b (Renderer.cpp:435)
             state = shade(state, hits, u[:, 4 * b:4 * b + 4], parity=parity)
-    with annotate("accumulate"):
+    with annotate("ptap.accumulate"):
         return gather_contribution(state)
 
 
@@ -240,58 +239,59 @@ class Renderer:
         A checkpoint of another config or seed is refused (``ValueError``).
         ``metrics`` (a :class:`..utils.metrics.MetricsLogger`) receives the
         live-ray curve of a fresh render and each chunk's wall time."""
-        cfg = self.config
-        seed = cfg.seed if seed is None else seed
-        key = prng_key(seed, device=self.device)
-        w, h = cfg.resolution
+        with annotate("ptap.render"):
+            cfg = self.config
+            seed = cfg.seed if seed is None else seed
+            key = prng_key(seed, device=self.device)
+            w, h = cfg.resolution
 
-        if debug_enabled() and self.world is not None and self.world.fused_ops is not None:
-            # PTAP_DEBUG=1: check the kernel invariants on a slice of
-            # primary rays before committing to the full render
-            ro_d, rd_d = generate_rays(cfg.camera, cfg.resolution, device=self.device)
-            checked_trace(self.world, ro_d[:8192], rd_d[:8192])
-        chunk = cfg.samples_per_chunk or cfg.samples_per_pixel
-        accum = None
-        done = 0
+            if debug_enabled() and self.world is not None and self.world.fused_ops is not None:
+                # PTAP_DEBUG=1: check the kernel invariants on a slice of
+                # primary rays before committing to the full render
+                ro_d, rd_d = generate_rays(cfg.camera, cfg.resolution, device=self.device)
+                checked_trace(self.world, ro_d[:8192], rd_d[:8192])
+            chunk = cfg.samples_per_chunk or cfg.samples_per_pixel
+            accum = None
+            done = 0
 
-        if checkpoint_path:
-            ck = load_checkpoint(checkpoint_path)
-            if ck is not None:
-                if ck.config != cfg.to_dict() or ck.seed != seed:
-                    raise ValueError(
-                        f"checkpoint {checkpoint_path} was written by a "
-                        "different render config/seed; refusing to resume"
-                    )
-                accum = torch.as_tensor(ck.accum, device=self.device)
-                done = ck.samples_done
+            if checkpoint_path:
+                ck = load_checkpoint(checkpoint_path)
+                if ck is not None:
+                    if ck.config != cfg.to_dict() or ck.seed != seed:
+                        raise ValueError(
+                            f"checkpoint {checkpoint_path} was written by a "
+                            "different render config/seed; refusing to resume"
+                        )
+                    accum = torch.as_tensor(ck.accum, device=self.device)
+                    done = ck.samples_done
 
-        if metrics is not None:
-            metrics.device = self.device
-        if metrics is not None and getattr(metrics, "enabled", True) and done == 0:
-            from .diagnostics import live_ray_curve
+            if metrics is not None:
+                metrics.device = self.device
+            if metrics is not None and getattr(metrics, "enabled", True) and done == 0:
+                from .diagnostics import live_ray_curve
 
-            metrics.record_live_curve(live_ray_curve(self.scene, cfg, key))
+                metrics.record_live_curve(live_ray_curve(self.scene, cfg, key))
 
-        while done < cfg.samples_per_pixel:
-            step = min(chunk, cfg.samples_per_pixel - done)
-            t0 = time.perf_counter()
-            accum = render_accumulate(
-                self.scene, key, cfg.camera, cfg.resolution, step, cfg.max_bounces,
-                engine=self.engine, parity=cfg.parity, sample_offset=done, init_accum=accum,
-                world=self.world,
-            )
-            done += step
-            if checkpoint_path or metrics:
-                accum_host = accum.cpu().numpy()  # also syncs for timing
-                if metrics:
-                    metrics.chunk_done(step, time.perf_counter() - t0)
-                if checkpoint_path:
-                    save_checkpoint(
-                        checkpoint_path,
-                        RenderCheckpoint(accum=accum_host, samples_done=done, seed=seed,
-                                         config=cfg.to_dict()),
-                    )
-        return accum.reshape(h, w, 3) / cfg.samples_per_pixel
+            while done < cfg.samples_per_pixel:
+                step = min(chunk, cfg.samples_per_pixel - done)
+                t0 = time.perf_counter()
+                accum = render_accumulate(
+                    self.scene, key, cfg.camera, cfg.resolution, step, cfg.max_bounces,
+                    engine=self.engine, parity=cfg.parity, sample_offset=done, init_accum=accum,
+                    world=self.world,
+                )
+                done += step
+                if checkpoint_path or metrics:
+                    accum_host = accum.cpu().numpy()  # also syncs for timing
+                    if metrics:
+                        metrics.chunk_done(step, time.perf_counter() - t0)
+                    if checkpoint_path:
+                        save_checkpoint(
+                            checkpoint_path,
+                            RenderCheckpoint(accum=accum_host, samples_done=done, seed=seed,
+                                             config=cfg.to_dict()),
+                        )
+            return accum.reshape(h, w, 3) / cfg.samples_per_pixel
 
     def render_to_bmp(self, path: str, seed: Optional[int] = None) -> torch.Tensor:
         image = self.render(seed=seed)

@@ -3,12 +3,46 @@
 * :func:`profile_trace` captures ``torch.profiler`` (CPU activity, and the
   card's CUDA activity when one is present) around a block and writes a
   Chrome/Perfetto trace into a directory;
-* :func:`annotate` names a scope: a ``record_function`` range in that trace
-  and, while a card is in use, an NVTX range;
+* :func:`annotate` names a span of the program: a ``record_function``
+  range while a PyTorch profiler runs, nothing otherwise (see below);
 * :func:`device_memory_report` gives each card's allocator use and size,
   ``{}`` without a card;
 * :func:`sync_device` waits for a card's queued work (nothing on the CPU),
   so that a wall clock read after it holds that work.
+
+**Spans.**  Tracing is on exactly while a PyTorch profiler runs
+(``torch.autograd._profiler_enabled()``): inside ``torch.profiler.profile``,
+:func:`profile_trace`, the benchmark's traced window (``python3 -m
+ptbench.run --trace 1``) and ``torch.autograd.profiler.emit_nvtx()``.  Then
+every span is a host event of the profiler's trace, kept in memory and
+written out when the profile ends, on the clock of the card's operations;
+under ``emit_nvtx()`` each one is also an NVTX range, for ``nsys``.  Off,
+:func:`annotate` costs one check.  Spans, each in the function that does
+the work (``ptap.`` is the program's namespace; ``ptbench.`` is the
+benchmark's, ``aten::`` PyTorch's):
+
+* ``ptap.render``: ``Renderer.render``, one a frame;
+* ``ptap.bake``: ``ops/plucker.py`` ``bake_world_triangles`` (the train
+  step bakes inside its loss, one a step);
+* ``ptap.rng``: ``ops/rng.py`` ``chunk_uniforms`` and
+  ``chunk_jitter_uniforms``;
+* ``ptap.trace_primary``: the engines' primary trace (kernel 1), one a slab;
+  ``ptap.trace``: the per-bounce engine's later bounces;
+* ``ptap.sort``: the binned engines' sort and worklists, a bounce;
+  ``ptap.bounce``: the binned render's kernel 2, a bounce;
+* ``ptap.shade``: the per-bounce engine's shading, and the binned engines'
+  bounce 0 and deferred bounces;
+* ``ptap.accumulate``: the render engines' sum of contributions;
+* ``ptap.train.step``: ``make_train_step``'s and
+  ``make_sharded_train_step``'s step;
+* ``ptap.train.index_forward``: each ``torch.no_grad()`` kernel block of
+  the fused diff forward (``diff/fast.py``);
+* ``ptap.train.replay``: the fused diff forward's replay of a sample;
+* ``ptap.train.backward``: ``value_and_grad``'s ``torch.autograd.grad``.
+
+Spans nest: ``ptap.rng``, ``ptap.sort`` and ``ptap.shade`` sit inside
+``ptap.train.index_forward`` in a step, and every train span inside
+``ptap.train.step``.
 
 JAX's ``enable_compile_cache`` has no counterpart: the port compiles
 nothing at run time but its kernels, which ``kernels/_build.py`` caches by
@@ -44,15 +78,16 @@ def profile_trace(log_dir: str):
         prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named scope visible in profiler traces (and, on the card, in NVTX)."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_initialized():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+    """The span ``name`` around a ``with`` block: a ``record_function``
+    range while a PyTorch profiler runs, else a context that does
+    nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def sync_device(device) -> None:

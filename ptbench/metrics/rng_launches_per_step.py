@@ -1,0 +1,9 @@
+"""rng_launches_per_step: launches (kernels, copies, sets) a train step made
+inside the program's ``ptap.rng`` spans (``ops/rng.py`` ``chunk_uniforms``, one a slab
+and sample group), counted as CUDA runtime calls in the trace.  Layer: the RNG."""
+
+from ptbench import spans
+
+
+def read(ctx):
+    return spans.launches_per_unit(ctx, "ptap.rng")

@@ -407,8 +407,9 @@ def test_profile_trace_writes_the_annotate_names(tmp_path, scenes):
     (path,) = glob.glob(str(tmp_path / "trace_*.json"))
     with open(path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"outer", "trace_primary", "rng", "shade", "trace", "accumulate"} <= names
-    assert any(e.key == "shade" for e in prof.key_averages())
+    assert {"outer", "ptap.render", "ptap.trace_primary", "ptap.rng", "ptap.shade",
+            "ptap.trace", "ptap.accumulate"} <= names
+    assert any(e.key == "ptap.shade" for e in prof.key_averages())
 
 
 def test_device_memory_report_is_empty_without_a_card():
