@@ -51,7 +51,9 @@ and read just after:
   against their fast form at the main paths' shapes and on degenerate
   rays; the profiling kernels P1 to P4 (``csrc/prof_parts.cu``,
   ``csrc/prof_argmin.cu``) against their plain versions at the scripts'
-  sizes, P3 also at 131,072 x 512 beside the launch floor; a checkpointed render of the reference scene (binned) and of the
+  sizes, P3 also at 131,072 x 512 beside the launch floor; kernel R1 (the
+  uniform stream, ``csrc/rng.cu``) against its plain twin at the Cornell
+  render's call and the reference step's; a checkpointed render of the reference scene (binned) and of the
   Cornell box (fused) stopped after its first chunk and resumed, bit-equal
   to the unbroken chunked render; the main-path render with a
   ``MetricsLogger`` and under ``profile_trace``; and the four profiling
@@ -182,6 +184,8 @@ MEGASCENE_BLOCKS = 701
 # bounds: NVIDIA H100 SXM data sheet (dense FP32 peak, dense BF16 tensor-core
 # peak, HBM3 bandwidth)
 PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# the INT32 pipe: 64 lanes a clock on each of the 132 SMs at 1980 MHz
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 PAIR_FLOPS = 47  # per (ray, triangle): 22 FMAs, det, division, t/u/v, accept chain
 GATE_FLOPS = 28  # per (live ray, box) test of kernel 5: 6 sub, 6 mul, 10 min/max, 6 for the tests
 # the profiling kernels at the scripts' sizes (scripts/prof_kernel_parts.py:26-30)
@@ -215,6 +219,14 @@ MT_FLOPS = 47
 # bound 2, tmax + delta 1, the early exit 9, the exits 4
 DDA_STEP_FLOPS = 24
 P3_SHAPES = ((512, 512), (131072, 512))
+# kernel R1 (csrc/rng.cu): (samples, rays, bounces) of the Cornell render's
+# chunk_uniforms call and of the reference train step's (one binned slab)
+RNG_CALLS = {"cornell": (8, 65536, 4), "reference_step": (1, 131072, 5)}
+# R1's operations a uniform on the INT32 pipe, counted in its bound: each of
+# the 20 rounds' rotate and xor (SHF and LOP3 run on no other pipe; the
+# compiler issues most adds as IMAD on the FMA pipe: the SASS holds some
+# 100 IADD3 beside 382 SHF)
+RNG_INT_OPS = 40
 PROFILE_SPP = 4  # the profiled render: the main path's, at fewer samples
 # the command line and the data-parallel layer
 CLI_INVERT_RES, CLI_INVERT_SPP, CLI_INVERT_STEPS, CLI_INVERT_LR = (200, 160), 2, 3, 0.1
@@ -371,17 +383,20 @@ def downsample(x, f: int):
     return x[: h - h % f, : w - w % f].reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
 
 
-def bound(flops: float, n_bytes: float, bf16_flops: float = 0.0) -> dict:
+def bound(flops: float, n_bytes: float, bf16_flops: float = 0.0, int_ops: float = 0.0) -> dict:
     """The least time the card could take for the work: the larger of the
     operations (f32 ones over the f32 peak plus bf16 products over the
-    tensor cores' bf16 peak) and the bytes over the memory rate."""
-    t_ops = flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS
+    tensor cores' bf16 peak plus 32-bit integer ones over the INT32 pipe's
+    rate) and the bytes over the memory rate."""
+    t_ops = flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS + int_ops / PEAK_INT32_OPS
     t_bytes = n_bytes / PEAK_BYTES
     out = {"bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": n_bytes}
     if bf16_flops:
         out["bf16_flops"] = bf16_flops
+    if int_ops:
+        out["int_ops"] = int_ops
     return out
 
 
@@ -649,15 +664,19 @@ def _kernel_fns():
     from pathtracerap_tpu_torch.kernels import trace as TT
 
     from pathtracerap_tpu_torch.kernels import dda as DD
+    from pathtracerap_tpu_torch.kernels import rng as KR
+    from pathtracerap_tpu_torch.ops import rng
     from pathtracerap_tpu_torch.ops.intersect import trace_parity
 
     wrappers = {"trace_list": TT.nearest_hit_fused, "bounce": MK.bounce,
                 "bounce_trace": MK.bounce_trace, "sample_fused": MK.sample_fused,
                 "nearest_hit": TT.nearest_hit, "prof_parts": KP.parts,
-                "prof_empty": KP.empty, "prof_argmin": KP.argmin_int, "grid_dda": DD.grid_trace}
+                "prof_empty": KP.empty, "prof_argmin": KP.argmin_int, "grid_dda": DD.grid_trace,
+                "rng": KR.chunk_uniforms}
     plains = (TT.nearest_hit_fused_plain, MK.bounce_plain, MK.bounce_trace_plain,
               MK.sample_fused_plain, TT.nearest_hit_plain, KP.parts_plain, KP.empty_plain,
-              KP.argmin_int_plain, trace_parity)
+              KP.argmin_int_plain, trace_parity, rng.chunk_uniforms_plain,
+              rng.chunk_jitter_uniforms_plain)
     return wrappers, plains
 
 
@@ -1086,6 +1105,7 @@ def cornell_render(dev):
     res.update(_counts())
     check(res["trace_list_launches"] == 1, "kernel 1 traced the primaries once")
     check(res["sample_fused_launches"] == CORNELL_SPP // 8, "kernel 4 once per 8-sample batch")
+    check(res["rng_launches"] == CORNELL_SPP // 8, "R1 once per 8-sample batch")
     check(res["plain_calls"] == 0, "no plain version called on the Cornell render")
     img = img.cpu().numpy()
     res["mean"] = float(img.mean())
@@ -2673,6 +2693,53 @@ def p3_vs_plain(dev):
     return res
 
 
+def rng_vs_plain(dev):
+    """Kernel R1 (csrc/rng.cu) bit-equal to its plain twin on the card, one
+    launch a call, at the main paths' calls (RNG_CALLS; samples from 2**32 - 2,
+    so that they wrap, under the largest seed) and their jitter streams;
+    device times of both, the kernel's bound (RNG_INT_OPS a uniform over the
+    INT32 rate, or the output's bytes) and its build."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels import _build
+    from pathtracerap_tpu_torch.kernels import rng as KR
+    from pathtracerap_tpu_torch.ops import rng
+
+    key = rng.prng_key(2**32 - 1, dev)
+    res = {}
+    for name, (ns, n, bounces) in RNG_CALLS.items():
+        samples = range(2**32 - 2, 2**32 - 2 + ns)
+
+        def kernel():
+            return rng.chunk_uniforms(key, samples, bounces, n, n)
+
+        def plain():
+            return rng.chunk_uniforms_plain(key, samples, bounces, n, n)
+
+        def jitter():
+            return rng.chunk_jitter_uniforms(key, samples[0], n, n)
+
+        _zero_counts()
+        u, ju = kernel(), jitter()
+        torch.cuda.synchronize()
+        check(KR.chunk_uniforms.launches == 2, f"R1 once a call on the {name} call")
+        check(bool(torch.equal(u, plain())), f"R1 bit-equal to its plain twin on the {name} call")
+        check(bool(torch.equal(ju, rng.chunk_jitter_uniforms_plain(key, samples[0], n, n))),
+              f"R1's jitter bit-equal to its plain twin on the {name} call")
+        r = {"samples": ns, "rays": n, "bounces": bounces, "uniforms": u.numel(),
+             "max_abs_err": 0.0}
+        r["ms"] = cuda_ms(kernel, host=r)
+        r["plain_ms"] = cuda_ms(plain, lead=False)
+        r["jitter_ms"] = cuda_ms(jitter)
+        r.update(bound(0.0, nbytes(u), int_ops=RNG_INT_OPS * u.numel()))
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        res[name] = r
+    (kname,) = [m for m in _build.kernel_resources() if "chunk_uniforms_kernelILi4E" in m]
+    res.update(_build.kernel_resources()[kname])
+    res["sass"] = {op: sass_counts(op).get(kname, 0) for op in ("IADD3", "SHF", "LOP3", "STG")}
+    return res
+
+
 def cli_counted(args) -> int:
     """``python -m pathtracerap_tpu_torch.cli ARGS`` in this process, with the
     kernels' launch counts set to 0 before it and printed to stderr after
@@ -3411,7 +3478,8 @@ def main() -> int:
     phase("kernel4_vs_plain", k4)
     qr = quality_render(dev)
     phase("quality_render", qr)
-    phase("cornell_render", cornell_render(dev))
+    cr = cornell_render(dev)
+    phase("cornell_render", cr)
     phase("cornell_train_step", cornell_train_step(dev))
     phase("fused_vs_cpu", fused_vs_cpu(dev))
 
@@ -3447,6 +3515,8 @@ def main() -> int:
     phase("prof_kernels_vs_plain", pk)
     p3 = p3_vs_plain(dev)
     phase("p3_vs_plain", p3)
+    r1 = rng_vs_plain(dev)
+    phase("rng_vs_plain", r1)
     phase("resume_render", resume_render(dev))
     phase("metrics_and_profile", metrics_and_profile(dev))
     ps = prof_scripts(dev)
@@ -3572,6 +3642,21 @@ def main() -> int:
                                 "smem_bytes": g1["form"]["smem_bytes"],
                                 "blocks_per_sm": g1["form"]["blocks_per_sm"],
                                 "highpoly_global_form_ms": g1["highpoly"]["ms"]}))
+    # R1 has no Pallas counterpart: JAX draws the uniforms with jax.random in
+    # XLA; its launches are the Cornell render's (one a batch of 8 samples),
+    # its time that render's call's
+    ref_step = r1["reference_step"]
+    kernels.append(entry("rng", "rng.cu",
+                         "pathtracerap_tpu/pallas/megakernel.py:1500 (jax.random; no pallas_call)",
+                         cr["rng_launches"], r1["cornell"],
+                         extra={"bound_share": r1["cornell"]["bound_share"],
+                                "int_ops_per_uniform": RNG_INT_OPS,
+                                "jitter_ms": r1["cornell"]["jitter_ms"],
+                                "reference_step_ms": ref_step["ms"],
+                                "reference_step_plain_ms": ref_step["plain_ms"],
+                                "reference_step_bound_ms": ref_step["bound_ms"],
+                                "registers": r1["registers"], "spill_stores": r1["spill_stores"],
+                                "sass": r1["sass"]}))
     for k in kernels:
         check(k["ms"] >= k["bound_ms"], f"{k['name']}: {k['ms']} ms not below its bound {k['bound_ms']}")
     print(json.dumps({"kernels": kernels}), flush=True)

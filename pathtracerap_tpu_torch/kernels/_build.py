@@ -43,7 +43,7 @@ def _nvcc() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     lib.ptt_trace_list.restype = i
     lib.ptt_trace_list.argtypes = [p, p, i, i, i, i, p, i, p, p, p, i, p]
     lib.ptt_bounce.restype = i
@@ -67,6 +67,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_grid_dda.argtypes = [p, p, p, i, p, i, *[p] * 8, *[i] * 11, *[p] * 11]
     lib.ptt_grid_dda_blocks_per_sm.restype = i
     lib.ptt_grid_dda_blocks_per_sm.argtypes = [i, i, p]
+    lib.ptt_chunk_uniforms.restype = i
+    lib.ptt_chunk_uniforms.argtypes = [p, u, i, i, i, i, i, i, u, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

@@ -12,14 +12,22 @@ default of jax 0.9):
   pair ``(i >> 32, i & 0xFFFFFFFF)``, XORs the two output words, keeps the
   top 23 bits as the mantissa of a float in [1, 2) and subtracts 1.
 
-Integers are held in int64 tensors masked to 32 bits.  This is plain torch,
-not a kernel: the JAX package draws these uniforms in XLA as well.
+The engines draw through :func:`chunk_uniforms` and
+:func:`chunk_jitter_uniforms`.  For a key on the card they launch kernel R1
+(``kernels/rng.py``, ``csrc/rng.cu``): one launch a call, on uint32.  For a
+CPU key they run their plain twins, :func:`chunk_uniforms_plain` and
+:func:`chunk_jitter_uniforms_plain`, which hold the integers in int64
+tensors masked to 32 bits; the two agree bit for bit.  The JAX package draws
+these uniforms in XLA.
 """
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
+from ..kernels import rng as KR
 from ..utils.profiling import annotate
 
 # Uniform draws per (ray, bounce): METAL draws 4 (utility.h:150-157).
@@ -110,6 +118,16 @@ def _rng_tiling(n: int, rng_tile: int = RNG_TILE):
     return rng_tile, -(-n // rng_tile)
 
 
+def _sample_run(sample_index):
+    """``(s0, ns)`` for an int or a non-empty ``range`` of step 1, the
+    samples kernel R1 takes; ValueError for any other sequence."""
+    if isinstance(sample_index, numbers.Integral):
+        return int(sample_index), 1
+    if isinstance(sample_index, range) and sample_index.step == 1 and len(sample_index):
+        return sample_index.start, len(sample_index)
+    raise ValueError(f"kernel R1 takes an int or a range of step 1 as samples, got {sample_index!r}")
+
+
 def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile_base: int = 0,
                    rng_tile: int = RNG_TILE):
     """(n_pad, 4 * max_bounces) uniforms for one sample iteration, or for
@@ -121,22 +139,16 @@ def chunk_uniforms(key, sample_index, max_bounces: int, n: int, n_pad: int, tile
     ``k`` of the chunk (``rng_tile`` rays: 8192 for the megakernel engines,
     the caller's ``tile_size`` for the per-bounce ones) is global tile
     ``tile_base + k``; rows past the drawn tiles are zero, rows past
-    ``n_pad`` are dropped.  Every key of every (sample, depth, tile) is
-    hashed in one batched pass, so the launch count does not grow with
-    samples or bounces."""
-    tile_n, nt = _rng_tiling(n, rng_tile)
-    dev = key.device
+    ``n_pad`` are dropped.  A key on the card launches kernel R1 once, and
+    takes an int or a ``range`` of step 1 (ValueError otherwise); a CPU
+    key runs the plain twin."""
     with annotate("ptap.rng"):
-        samples = torch.as_tensor(sample_index, dtype=torch.int64, device=dev).reshape(-1)
-        depths = max_bounces - torch.arange(max_bounces, dtype=torch.int64, device=dev)
-        tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=dev)
-        k_s = fold_in(key[None, :], samples)  # (ns, 2)
-        k_d = fold_in(k_s[:, None, :], depths)  # (ns, B, 2): bounce_key
-        k_t = fold_in(k_d[:, :, None, :], tiles)  # (ns, B, nt, 2)
-        u = uniform(k_t, tile_n, DRAWS_PER_BOUNCE).reshape(samples.shape[0], max_bounces, -1, 4)
-        if u.shape[2] < n_pad:
-            u = torch.cat([u, u.new_zeros(u.shape[:2] + (n_pad - u.shape[2], 4))], dim=2)
-        return u[:, :, :n_pad].permute(0, 2, 1, 3).reshape(-1, DRAWS_PER_BOUNCE * max_bounces)
+        if key.device.type != "cuda":
+            return chunk_uniforms_plain(key, sample_index, max_bounces, n, n_pad, tile_base,
+                                        rng_tile)
+        tile_n, nt = _rng_tiling(n, rng_tile)
+        return KR.chunk_uniforms(key, *_sample_run(sample_index), max_bounces, DRAWS_PER_BOUNCE,
+                                 n_pad, tile_n, nt, tile_base)
 
 
 def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int = 0,
@@ -144,11 +156,54 @@ def chunk_jitter_uniforms(key, sample_index, n: int, n_pad: int, tile_base: int 
     """(n_pad, 2) jitter offsets of one sample over the ``rng_tile``-ray
     RNG tiles of an ``n``-ray chunk, as the JAX engines draw them
     (:func:`camera_jitter_uniforms` for tiles ``tile_base + k``): rows past
-    the drawn tiles are zero, rows past ``n_pad`` are dropped."""
-    tile_n, nt = _rng_tiling(n, rng_tile)
+    the drawn tiles are zero, rows past ``n_pad`` are dropped.  A key on
+    the card launches kernel R1 once, and takes an int sample (ValueError
+    otherwise); a CPU key runs the plain twin."""
     with annotate("ptap.rng"):
-        tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=key.device)
-        u = camera_jitter_uniforms(key, sample_index, tiles, tile_n).reshape(-1, 2)
-        if u.shape[0] < n_pad:
-            u = torch.cat([u, u.new_zeros(n_pad - u.shape[0], 2)])
-        return u[:n_pad]
+        if key.device.type != "cuda":
+            return chunk_jitter_uniforms_plain(key, sample_index, n, n_pad, tile_base, rng_tile)
+        s0, ns = _sample_run(sample_index)
+        if ns != 1:
+            raise ValueError(f"the jitter stream draws one sample a call, got {sample_index!r}")
+        tile_n, nt = _rng_tiling(n, rng_tile)
+        return KR.chunk_uniforms(key, s0, 1, 1, 2, n_pad, tile_n, nt, tile_base)
+
+
+def chunk_uniforms_plain(key, sample_index, max_bounces: int, n: int, n_pad: int,
+                         tile_base: int = 0, rng_tile: int = RNG_TILE):
+    """Plain twin of :func:`chunk_uniforms` (and of kernel R1), in torch
+    on ``key``'s device.  Every key of every (sample, depth, tile) is
+    hashed in one batched pass, so the launch count does not grow with
+    samples or bounces."""
+    chunk_uniforms_plain.calls += 1
+    tile_n, nt = _rng_tiling(n, rng_tile)
+    dev = key.device
+    samples = torch.as_tensor(sample_index, dtype=torch.int64, device=dev).reshape(-1)
+    depths = max_bounces - torch.arange(max_bounces, dtype=torch.int64, device=dev)
+    tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=dev)
+    k_s = fold_in(key[None, :], samples)  # (ns, 2)
+    k_d = fold_in(k_s[:, None, :], depths)  # (ns, B, 2): bounce_key
+    k_t = fold_in(k_d[:, :, None, :], tiles)  # (ns, B, nt, 2)
+    u = uniform(k_t, tile_n, DRAWS_PER_BOUNCE).reshape(samples.shape[0], max_bounces, -1, 4)
+    if u.shape[2] < n_pad:
+        u = torch.cat([u, u.new_zeros(u.shape[:2] + (n_pad - u.shape[2], 4))], dim=2)
+    return u[:, :, :n_pad].permute(0, 2, 1, 3).reshape(-1, DRAWS_PER_BOUNCE * max_bounces)
+
+
+chunk_uniforms_plain.calls = 0
+
+
+def chunk_jitter_uniforms_plain(key, sample_index, n: int, n_pad: int, tile_base: int = 0,
+                                rng_tile: int = RNG_TILE):
+    """Plain twin of :func:`chunk_jitter_uniforms` (and of kernel R1's
+    jitter form), in torch on ``key``'s device."""
+    chunk_jitter_uniforms_plain.calls += 1
+    tile_n, nt = _rng_tiling(n, rng_tile)
+    tiles = tile_base + torch.arange(nt, dtype=torch.int64, device=key.device)
+    u = camera_jitter_uniforms(key, sample_index, tiles, tile_n).reshape(-1, 2)
+    if u.shape[0] < n_pad:
+        u = torch.cat([u, u.new_zeros(n_pad - u.shape[0], 2)])
+    return u[:n_pad]
+
+
+chunk_jitter_uniforms_plain.calls = 0

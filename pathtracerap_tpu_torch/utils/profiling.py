@@ -25,7 +25,7 @@ benchmark's, ``aten::`` PyTorch's):
 * ``ptap.bake``: ``ops/plucker.py`` ``bake_world_triangles`` (the train
   step bakes inside its loss, one a step);
 * ``ptap.rng``: ``ops/rng.py`` ``chunk_uniforms`` and
-  ``chunk_jitter_uniforms``;
+  ``chunk_jitter_uniforms`` (kernel R1's one launch a call on the card);
 * ``ptap.trace_primary``: the engines' primary trace (kernel 1), one a slab;
   ``ptap.trace``: the per-bounce engine's later bounces;
 * ``ptap.sort``: the binned engines' sort and worklists, a bounce;

@@ -81,3 +81,17 @@ def test_chunk_uniforms_sample_batch_bit_equal(n, n_pad, tile_base):
     out = rng.chunk_uniforms(rng.prng_key(2, "cpu"), range(4, 7), 3, n, n_pad, tile_base)
     assert out.shape == (3 * n_pad, 12)
     np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+
+
+def test_chunk_uniforms_wrapping_indices_bit_equal():
+    """Sample and tile indices at and past 2**31 and 2**32 wrap as JAX's
+    uint32 fold-in data do: samples 2**32 - 1 and 2**32 (JAX's 0), tiles
+    2**31 - 2 .. 2**31, the largest seed."""
+    ref = np.concatenate(
+        [np.asarray(jax_chunk_uniforms(jax.random.PRNGKey(2**32 - 1), s, 2, 20000, 20480,
+                                       2**31 - 2))
+         for s in (2**32 - 1, 0)]
+    )
+    out = rng.chunk_uniforms(rng.prng_key(2**32 - 1, "cpu"), range(2**32 - 1, 2**32 + 1), 2,
+                             20000, 20480, 2**31 - 2)
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
