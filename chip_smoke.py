@@ -2085,7 +2085,7 @@ def metrics_and_profile(dev):
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     names = ("ptap.render", "ptap.trace_primary", "ptap.rng", "ptap.shade", "ptap.sort",
-             "ptap.bounce", "ptap.accumulate")
+             "ptap.worklists", "ptap.bounce", "ptap.accumulate")
     res["annotate_counts"] = {n: sum(1 for e in events if e.get("name") == n) for n in names}
     res["trace_mb"] = os.path.getsize(path) / 1e6
     res["device_kernel_events"] = sum(1 for e in events if e.get("cat") == "kernel")

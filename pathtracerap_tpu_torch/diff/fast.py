@@ -225,6 +225,7 @@ def make_idxs_multi(world, ro_p, rd_p, hits0, idx_col0, key, s0: int, ns: int, n
     for b in range(1, max_bounces):
         with annotate("ptap.sort"):
             pack, pix = MK.sort_wavefront(pack, pix, lo, hi)
+        with annotate("ptap.worklists"):
             lists, unit = MK.bounce_lists(world, margin, pack, ray_tile)
         tg = MK.bounce_trace(pack, lists, unit, world, ray_tile)
         cols.append(tg[1][MK.inverse_permutation(pix)])  # in the original ray order

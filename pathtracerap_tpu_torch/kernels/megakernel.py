@@ -420,6 +420,7 @@ def render_samples_binned(
         for b in range(1, max_bounces):
             with annotate("ptap.sort"):
                 pack, pix = sort_wavefront(pack, pix, lo, hi)
+            with annotate("ptap.worklists"):
                 lists, unit = bounce_lists(world, margin, pack, ray_tile)
             with annotate("ptap.bounce"):
                 pack, _ = bounce(pack, u_flat[:, 4 * b:4 * b + 4][pix], lists, unit, world,

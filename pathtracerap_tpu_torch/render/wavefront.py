@@ -229,7 +229,8 @@ class Renderer:
         metrics=None,
     ) -> torch.Tensor:
         """Full render; returns the (H, W, 3) float image (accumulated
-        contributions / n_samples, pre-quantization) on the device.
+        contributions / n_samples, pre-quantization) on the device; NaN
+        where ``samples_per_pixel`` is 0.
 
         The samples go in chunks of ``samples_per_chunk`` (all at once when
         0).  With ``checkpoint_path`` the accumulation is saved after every
@@ -291,6 +292,8 @@ class Renderer:
                             RenderCheckpoint(accum=accum_host, samples_done=done, seed=seed,
                                              config=cfg.to_dict()),
                         )
+            if accum is None:  # no samples: their mean, 0 / 0, is NaN
+                accum = torch.zeros((w * h, 3), dtype=torch.float32, device=self.device)
             return accum.reshape(h, w, 3) / cfg.samples_per_pixel
 
     def render_to_bmp(self, path: str, seed: Optional[int] = None) -> torch.Tensor:

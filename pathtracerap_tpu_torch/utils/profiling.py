@@ -28,8 +28,10 @@ benchmark's, ``aten::`` PyTorch's):
   ``chunk_jitter_uniforms`` (kernel R1's one launch a call on the card);
 * ``ptap.trace_primary``: the engines' primary trace (kernel 1), one a slab;
   ``ptap.trace``: the per-bounce engine's later bounces;
-* ``ptap.sort``: the binned engines' sort and worklists, a bounce;
-  ``ptap.bounce``: the binned render's kernel 2, a bounce;
+* ``ptap.sort``: the binned engines' wavefront sort (keys, argsort,
+  gather), a bounce; ``ptap.worklists``: their per-tile worklists
+  (``bounce_lists``), a bounce; ``ptap.bounce``: the binned render's
+  kernel 2, a bounce;
 * ``ptap.shade``: the per-bounce engine's shading, and the binned engines'
   bounce 0 and deferred bounces;
 * ``ptap.accumulate``: the render engines' sum of contributions;
@@ -40,9 +42,9 @@ benchmark's, ``aten::`` PyTorch's):
 * ``ptap.train.replay``: the fused diff forward's replay of a sample;
 * ``ptap.train.backward``: ``value_and_grad``'s ``torch.autograd.grad``.
 
-Spans nest: ``ptap.rng``, ``ptap.sort`` and ``ptap.shade`` sit inside
-``ptap.train.index_forward`` in a step, and every train span inside
-``ptap.train.step``.
+Spans nest: ``ptap.rng``, ``ptap.sort``, ``ptap.worklists`` and
+``ptap.shade`` sit inside ``ptap.train.index_forward`` in a step, and
+every train span inside ``ptap.train.step``.
 
 JAX's ``enable_compile_cache`` has no counterpart: the port compiles
 nothing at run time but its kernels, which ``kernels/_build.py`` caches by

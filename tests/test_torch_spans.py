@@ -39,6 +39,7 @@ COUNTS = {
         "ptap.rng": 2,
         "ptap.shade": 10,  # bounce 0 and 4 deferred bounces, a group
         "ptap.sort": 8,
+        "ptap.worklists": 8,
         "ptap.train.replay": 2,
         "ptap.train.backward": 1,
     },
@@ -141,6 +142,7 @@ def _inside(span, parents):
     ("ptap.train.backward", "ptap.train.step"),
     ("ptap.rng", "ptap.train.index_forward"),
     ("ptap.sort", "ptap.train.index_forward"),
+    ("ptap.worklists", "ptap.train.index_forward"),
     ("ptap.shade", "ptap.train.index_forward"),
     ("ptap.trace_primary", "ptap.train.index_forward"),
 ])
