@@ -1,6 +1,8 @@
 """Smoke run of the PyTorch + CUDA port on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bounce-split   (the build and kernel 2's split alone,
+                                           with its chunk sizes compared)
 
 Builds the port's CUDA kernels from ``pathtracerap_tpu_torch/csrc`` with
 nvcc, holds each kernel against its plain PyTorch version at the shapes of
@@ -30,8 +32,14 @@ and read just after:
   step (the pallas diff engine on kernel 1) on the Cornell box at 256x256,
   8 spp, 4 bounces; the suite's 701-block megascene through
   ``run_config``, with kernels 1 and 2 against their plain versions at
-  701 blocks; and small per-bounce renders and a default step on the card
-  held against CPU tensors;
+  701 blocks; kernel 2 split over thread blocks on the benchmark's
+  highpoly configuration (293 blocks, 512x512 x 8 bounces): per bounce
+  the live tiles, chunks a live tile and tiles merged, the wrapper
+  against the plain version, its time split and unsplit in turns, every
+  launch bit-equal to the unsplit one, and whole frames bit-equal both
+  ways; and small
+  per-bounce renders and a default step on the card held against CPU
+  tensors;
 * the parity DDA engine (kernel G1, ``csrc/grid_dda.cu``): G1 against its
   plain version on the 1000x800 primary and bounce-1 wavefronts (the
   bounce with its liveness mask), on rays that start inside the models'
@@ -255,6 +263,12 @@ RING_ROTATIONS = 10  # transfers of the megascene's fused shard timed alone
 RING_ATOL = 1e-5  # the fused ring against the dense one, outside the counted pixels
 RING_PHANTOM_SHARE = 1e-3  # the share of pixels the two rings may differ on (phantom accepts)
 NATIVE_REPS = 3  # the native host library: the fastest of this many calls of each backend
+# kernel 2 split over thread blocks (bounce_split): the highpoly configuration
+# the benchmark's highpoly-render cell runs (512x512 x 1 spp x 8 bounces, two
+# slabs), its chunk sizes compared at 1, 2, 4 and 8 blocks of 512 a chunk,
+# and whole frames split and unsplit in turns
+HIGHPOLY_CONFIG = os.path.join(ROOT, "ptbench", "configs", "highpoly.json")
+SPLIT_SEED, SPLIT_CHUNKS, SPLIT_FRAMES = 7, (1, 2, 4, 8), 3
 
 
 # the device timer (cuda_ms): torch.cuda._sleep spins this many SM clocks a
@@ -1626,6 +1640,158 @@ def megascene_render(dev):
     # from inside the room the sorted bounce rays list many of the 701 blocks
     inside = bounce1_wavefront(world, dev, CameraConfig(**INSIDE_CAMERA), res_xy, bounces)
     res["kernel2_inside"] = kernel2_vs_plain(world, dev, inside, plain_rows=PLAIN_SLICE)
+    return res
+
+
+def _same_state(a, b) -> bool:
+    """Two kernel-2 outputs (state, index) bit for bit on every ray."""
+    import torch
+
+    return torch.equal(a[0].view(torch.int32), b[0].view(torch.int32)) and torch.equal(a[1], b[1])
+
+
+def _split_stats(pack, lists, unit: int, ray_tile: int) -> dict:
+    """What kernel 2's split engages on a sorted wavefront: live rays and
+    tiles, the chunks bounce_chunk gives, those a live tile sweeps, and the
+    live tiles whose lists span chunks (merged by their last chunk)."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels.megakernel import bounce_chunk
+
+    nt, lw = lists.shape
+    chunk = bounce_chunk(unit, lw, nt)
+    live = pack[:, 9] > 0
+    tile_live = live.reshape(nt, ray_tile).any(dim=1)
+    lens = (lists >= 0).sum(dim=1)
+    swept = ((lens + chunk - 1) // chunk).clamp(min=1)[tile_live].float()
+    return {
+        "live_rays": int(live.sum().item()), "live_tiles": int(tile_live.sum().item()),
+        "chunk": chunk, "list_len_mean": lens[tile_live].float().mean().item() if swept.numel() else 0.0,
+        "chunks_a_live_tile": swept.mean().item() if swept.numel() else 0.0,
+        "chunks_a_live_tile_max": int(swept.max().item()) if swept.numel() else 0,
+        "tiles_merged": int((tile_live & (lens > chunk)).sum().item()),
+    }
+
+
+def bounce_split(dev, sweep: bool = False):
+    """Kernel 2 split over thread blocks on the highpoly configuration
+    (``ptbench/configs/highpoly.json``: 149,733 triangles in 293 blocks,
+    512x512 x 1 spp x 8 bounces, the binned engine with block worklists).
+    Per bounce of each slab of one frame: ``_split_stats``; the ``bounce``
+    wrapper against the plain version (``kernel2_vs_plain`` on the first
+    PLAIN_SLICE rays, bit for bit, with its bound on the live pairs of its
+    lists) and bit-equal on every ray to the launch with each tile's whole
+    list in one thread block (``unsplit``: the launch before the split);
+    kernel 2's device time (``cuda_ms``) unsplit and with ``bounce_chunk``'s
+    chunks (``split``) in turns, and with ``sweep`` at SPLIT_CHUNKS blocks a
+    chunk as well, each launch bit-equal to the unsplit one.  Then whole
+    frames through ``Renderer.render``, unsplit and split in turns: the
+    images bit-equal, each frame's wall time, and kernel 2's launches,
+    split launches and their thread blocks."""
+    import torch
+
+    from ptbench import cells, scenes
+    from pathtracerap_tpu_torch import RenderConfig, Renderer
+    from pathtracerap_tpu_torch.kernels import megakernel as TM
+    from pathtracerap_tpu_torch.kernels.trace import _slab_margin, trace_pallas
+    from pathtracerap_tpu_torch.ops.math import normalize
+    from pathtracerap_tpu_torch.ops.rng import RNG_TILE, prng_key
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+
+    with open(HIGHPOLY_CONFIG) as f:
+        config = json.load(f)
+    scene = scenes.port_scene(scenes.scene_inputs(config)).to_device(dev)
+    cfg = RenderConfig(resolution=tuple(config["resolution"]), samples_per_pixel=1,
+                       max_bounces=config["max_bounces"], camera=cells.camera(config),
+                       engine=config["engine"])
+    renderer = Renderer(scene, cfg, device=dev)
+    world = renderer.world
+    check(not TM.use_sub_blocks(world) and world.block_aabb.shape[0] == 293,
+          "the highpoly world takes block worklists over 293 blocks")
+    ray_tile = TM.binned_ray_tile(world)
+    margin = _slab_margin(world.block_aabb)
+    lo, hi = TM.scene_morton_bounds(world.block_aabb)
+    ro, rd = generate_rays(cfg.camera, cfg.resolution, device=dev)
+    key = prng_key(SPLIT_SEED, dev)
+    slab = TM.BINNED_SLAB_TILES * RNG_TILE
+    res = {"ray_tile": ray_tile, "blocks": world.block_aabb.shape[0],
+           "chunk_tris": TM.BOUNCE_CHUNK_TRIS, "max_blocks": TM.BOUNCE_MAX_BLOCKS, "bounces": []}
+    names = ["unsplit", "split"] + ([f"chunk{c}" for c in SPLIT_CHUNKS] if sweep else [])
+    for s0 in range(0, ro.shape[0], slab):
+        ro_s, rd_s = ro[s0:s0 + slab], normalize(rd[s0:s0 + slab])
+        hits0 = trace_pallas(world, ro_s, rd_s)
+        pack, u_flat = TM.first_wavefront(world, ro_s, rd_s, hits0, key, 0, 1, ro_s.shape[0],
+                                          cfg.max_bounces, True, s0 // RNG_TILE)
+        pix = torch.arange(pack.shape[0], device=dev)
+        for b in range(1, cfg.max_bounces):
+            pack, pix = TM.sort_wavefront(pack, pix, lo, hi)
+            lists, unit = TM.bounce_lists(world, margin, pack, ray_tile)
+            u_b = u_flat[:, 4 * b:4 * b + 4][pix]
+            row = {"slab": s0 // slab, "bounce": b, **_split_stats(pack, lists, unit, ray_tile)}
+            k2 = kernel2_vs_plain(world, dev, (pack, u_b, lists, unit, ray_tile),
+                                  plain_rows=PLAIN_SLICE)
+            row.update({k: k2[k] for k in ("plain_rays", "bit_equal_share", "hit_agree_share",
+                                           "plain_ms", "bound_ms", "flops")})
+            lw = lists.shape[1]
+
+            def launch(chunk):
+                return TM._bounce_kernel(pack, u_b, lists, unit, world, ray_tile, True, False,
+                                         chunk)
+
+            one = launch(lw)
+            check(_same_state(TM.bounce(pack, u_b, lists, unit, world, ray_tile, True), one),
+                  f"the bounce wrapper bit-equal to the unsplit launch (slab {row['slab']}, "
+                  f"bounce {b})")
+            turns = [("unsplit", lw), ("split", row["chunk"])]
+            if sweep:
+                turns += [(f"chunk{c}", c * world.tri_block // unit) for c in SPLIT_CHUNKS]
+            for name, chunk in turns + turns[1::-1]:
+                check(_same_state(launch(chunk), one),
+                      f"kernel 2 at chunks of {chunk} bit-equal to the unsplit launch "
+                      f"(slab {row['slab']}, bounce {b})")
+                row.setdefault(f"{name}_ms", []).append(cuda_ms(lambda: launch(chunk), reps=5))
+            row["bound_share"] = row["bound_ms"] / min(row["split_ms"])
+            res["bounces"].append(row)
+            pack = one[0]
+    for name in names:
+        res[f"{name}_ms_a_frame"] = sum(min(r[f"{name}_ms"]) for r in res["bounces"])
+    res["bound_ms_a_frame"] = sum(r["bound_ms"] for r in res["bounces"])
+    n = slab
+    res["merge_fill_ms"] = cuda_ms(
+        lambda: torch.zeros(n + n // ray_tile, dtype=torch.int64, device=dev), reps=20)
+
+    # whole frames, unsplit and split in turns
+    rule = TM.bounce_chunk
+    frames = {"unsplit": [], "split": []}
+    images = {}
+    counts = {}
+    try:
+        for k in range(2 * SPLIT_FRAMES):
+            name = ("unsplit", "split", "split", "unsplit")[k % 4]
+            TM.bounce_chunk = (lambda unit, lw, nt: max(lw, 1)) if name == "unsplit" else rule
+            before = (TM.bounce.launches, TM.bounce.split_launches, TM.bounce.split_blocks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = renderer.render(seed=SPLIT_SEED)
+            torch.cuda.synchronize()
+            frames[name].append((time.perf_counter() - t0) * 1e3)
+            counts[name] = [TM.bounce.launches - before[0], TM.bounce.split_launches - before[1],
+                            TM.bounce.split_blocks - before[2]]
+            if name in images:
+                check(torch.equal(images[name].view(torch.int32), img.view(torch.int32)),
+                      f"the {name} frame repeats bit for bit")
+            images[name] = img
+    finally:
+        TM.bounce_chunk = rule
+    check(torch.equal(images["split"].view(torch.int32), images["unsplit"].view(torch.int32)),
+          "the split frame bit-equal to the unsplit one")
+    check(counts["split"][0] == counts["unsplit"][0] == 2 * (cfg.max_bounces - 1),
+          f"kernel 2 launches once a bounce: {counts}")
+    check(counts["unsplit"][1] == 0 and counts["split"][1] == counts["split"][0],
+          f"every launch of the split frame splits, none of the unsplit one: {counts}")
+    res["frame_ms"] = frames
+    res["launches_split_blocks"] = counts
+    res["image_mean"] = images["split"].mean().item()
     return res
 
 
@@ -3423,6 +3589,28 @@ def phase(name: str, res: dict) -> None:
     print(f"{name}: {json.dumps({**res, 'at_s': time.perf_counter() - _T0})}", flush=True)
 
 
+def bounce_split_main() -> int:
+    """The build and the ``bounce_split`` phase alone."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    t0 = time.perf_counter()
+    _build.library()
+    phase("build", {"seconds": time.perf_counter() - t0,
+                    "bounce_kernel": kernel_build("bounce")})
+    phase("bounce_split", bounce_split(torch.device("cuda", 0), sweep=True))
+    print(json.dumps({"ok": True, "device": {"kind": torch.cuda.get_device_name(0)}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3501,6 +3689,7 @@ def main() -> int:
     phase("pallas_train_step", pallas_train_step(dev))
     mega = megascene_render(dev)
     phase("megascene_render", mega)
+    phase("bounce_split", bounce_split(dev))
     phase("pallas_vs_cpu", pallas_vs_cpu(dev))
     g1 = dda_vs_plain(dev)
     phase("dda_vs_plain", g1)
@@ -3675,4 +3864,6 @@ if __name__ == "__main__":
         sys.exit(cli_counted(sys.argv[2:]))
     if sys.argv[1:2] == ["--rank-job"]:
         sys.exit(rank_job(sys.argv[2]))
+    if sys.argv[1:2] == ["--bounce-split"]:
+        sys.exit(bounce_split_main())
     sys.exit(main())

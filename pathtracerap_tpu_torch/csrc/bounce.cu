@@ -17,16 +17,17 @@
 // shading is a few hundred flops per ray, once.  The first port (one
 // thread per ray, 22 scalar shared loads and a division per pair, two
 // barriers and a synchronous staging per worklist entry) was bound by the
-// SM's shared-memory load pipe.  The design now: one thread block per ray
-// tile of `ray_tile / R` threads, R = 2 (kRays); each thread owns R rays
-// of the sorted tile, strided by `ray_tile / R` so that
-// the state loads and stores stay coalesced, keeps their ray vectors and
-// bests in registers and sweeps them together (common.cuh sweep_rays: six
-// 16-byte shared loads a triangle for R rays, the division only where a
-// ray may be accepted).  The wavefront is sorted with dead rays last, so
-// the live rays of a tile are a prefix: in a tile with fewer live rays
-// than threads (the megascene's tail) the threads and warps past them own
-// no live ray and skip the sweep.  The worklist holds 128-triangle
+// SM's shared-memory load pipe.  The design now: thread blocks of
+// `ray_tile / R` threads, R = 2 (kRays), one a ray tile and chunk of its
+// worklist (below); each thread owns R rays of the sorted tile, strided
+// by `ray_tile / R` so that the state loads and stores stay coalesced,
+// keeps their ray vectors and bests in registers and sweeps them
+// together (common.cuh sweep_rays: six 16-byte shared loads a triangle
+// for R rays, the division only where a ray may be accepted).  The
+// wavefront is sorted with dead rays last, so the live rays of a tile are
+// a prefix: in a tile with fewer live rays than threads (the megascene's
+// tail) the threads and warps past them own no live ray and skip the
+// sweep.  The worklist holds 128-triangle
 // sub-block ids (or whole blocks above 64 blocks, four runs an entry),
 // sorted by the tile's entry distance; its 128-triangle runs of the
 // triangle-major pack are staged by 16-byte cp.async into two shared
@@ -34,10 +35,28 @@
 // the sweep stops at the last real triangle (padding is never accepted).
 // Then each thread re-reads its rays' states and shades them one by one.
 // R = 2 measured as fast as R = 1 within the spread of runs, and R = 4
-// slower (PERF.md).  The TPU's groups of four sub-blocks, its one-hot
-// attribute matmul and its lane-major shading layout are TPU devices and
-// are not carried over: the winner's attributes are read directly from
-// the (16, T) attribute rows.
+// slower (PERF.md).
+//
+// Worklists split over thread blocks.  On a dense mesh the block lists of
+// incoherent bounces keep most of the scene's blocks, and the wavefront's
+// live tiles (a prefix of the sorted slab) can be fewer than the 132 SMs:
+// one thread block a tile then left SMs idle for the whole sweep of the
+// longest list.  So, as kernel 1 does, a tile's list is cut into chunks of
+// C entries (the wrapper picks C from the shapes), each swept by its own
+// thread block (grid: tiles x ceil(list width / C); a chunk past the
+// list's end returns at once).  A tile whose list fits one chunk sweeps,
+// shades and writes in one thread block, with no atomics; a tile with no
+// live ray is passed through by its chunk 0.  Otherwise each chunk folds
+// its rays' bests into a per-ray 64-bit key (common.cuh merge_key) with
+// atomicMax, and the tile's last chunk to finish (a per-tile counter,
+// after a __threadfence) reads the merged hits at L2, re-reads the states
+// and shades them: the key keeps the one-pass sweep's lexicographic
+// minimum of (t, index), so the output is the same bits for any C.
+//
+// The TPU's groups of four sub-blocks, its one-hot attribute matmul and
+// its lane-major shading layout are TPU devices and are not carried over:
+// the winner's attributes are read directly from the (16, T) attribute
+// rows.
 //
 // The shading is csrc/shade.cuh's, which kernel 4 shares.
 
@@ -58,14 +77,21 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
                               const float* __restrict__ uni,      // (N, 4)
                               const int* __restrict__ lists,      // (nt, list_w)
                               int list_w, int unit,
+                              int chunk,                          // entries a thread block sweeps
                               const float* __restrict__ ops_tri,  // (T, 24) triangle-major pack
                               int n_tris,                         // real triangles
                               const float* __restrict__ attr,     // (16, attr_cols)
                               int attr_cols, int parity,
                               float* __restrict__ out,            // (N, 10)
-                              int* __restrict__ idx_out) {        // (N,) hit or -1
+                              int* __restrict__ idx_out,          // (N,) hit or -1
+                              unsigned long long* merge) {        // (N + nt) zeros, or null
   __shared__ float4 run[2][kSweepRun * 6];
+  __shared__ int last;
   const int tile = blockIdx.x;
+  const int* row = lists + (size_t)tile * list_w;
+  const int j0 = blockIdx.y * chunk;
+  if (j0 > 0 && row[j0] < 0) return;  // a chunk past the list's end
+  const bool whole = list_w <= chunk || row[chunk] < 0;  // the list fits chunk 0
   // this thread's rays: base + k * stride, k < kRays
   const int stride = blockDim.x;
   const size_t base = (size_t)tile * stride * kRays + threadIdx.x;
@@ -84,7 +110,8 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
     best[k] = PTT_F_MAX;
     best_idx[k] = -1;
   }
-  if (!__syncthreads_or(live)) {  // no live ray in the tile
+  if (!__syncthreads_or(live)) {  // no live ray in the tile: chunk 0 passes it through
+    if (j0 > 0) return;
 #pragma unroll
     for (int k = 0; k < kRays; ++k) {
       const size_t ray = base + (size_t)k * stride;
@@ -94,7 +121,7 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
     return;
   }
 
-  RunCursor<kSweepRun> cur = {lists + (size_t)tile * list_w, list_w, unit, n_tris, 0, 0, -1};
+  RunCursor<kSweepRun> cur = {row + j0, min(chunk, list_w - j0), unit, n_tris, 0, 0, -1};
   cur.start();
   if (!cur.done()) stage_tri_async(run[0], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
   for (int buf = 0; !cur.done(); buf ^= 1) {
@@ -107,6 +134,39 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
       stage_tri_async(run[buf ^ 1], ops_tri, cur.g0(), min(kSweepRun, n_tris - cur.g0()));
     }
     if (live) sweep_rays<kRays, Debug>(run[buf], width, g0, r, best, best_idx);
+  }
+
+  if (!whole) {
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      const size_t ray = base + (size_t)k * stride;
+      if (best_idx[k] >= 0) atomicMax(merge + ray, merge_key(best[k], best_idx[k]));
+    }
+    __threadfence();  // this chunk's keys are visible before its count
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // the list's length (its entries are a prefix of the row, > chunk here)
+      int lo = chunk + 1, hi = list_w;
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (row[mid - 1] >= 0) {
+          lo = mid;
+        } else {
+          hi = mid - 1;
+        }
+      }
+      const unsigned long long chunks = (lo + chunk - 1) / chunk;
+      unsigned long long* count = merge + (size_t)gridDim.x * stride * kRays + tile;
+      last = atomicAdd(count, 1ull) == chunks - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      // read at L2, where the atomics landed
+      merged_hit(atomicAdd(merge + base + (size_t)k * stride, 0ull), best[k], best_idx[k]);
+    }
   }
 
 #pragma unroll
@@ -123,15 +183,20 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
   }
 }
 
+// chunk: worklist entries a thread block sweeps (>= 1); merge: (N + nt)
+// zeroed 64-bit words when a list spans chunks (the per-ray keys, then the
+// per-tile counts), else unused.
 extern "C" int ptt_bounce(const float* state, const float* uni, const int* lists, int nt,
-                          int list_w, int unit, int ray_tile, const float* ops_tri, int n_tris,
-                          const float* attr, int attr_cols, int parity, float* out, int* idx_out,
-                          int debug, void* stream) {
+                          int list_w, int unit, int ray_tile, int chunk, const float* ops_tri,
+                          int n_tris, const float* attr, int attr_cols, int parity, float* out,
+                          int* idx_out, unsigned long long* merge, int debug, void* stream) {
   if (nt == 0) return (int)cudaSuccess;
-  if (ray_tile % (32 * kRays)) return (int)cudaErrorInvalidValue;
+  if (ray_tile % (32 * kRays) || chunk < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = list_w > 0 ? (list_w + chunk - 1) / chunk : 1;
+  if (chunks > 65535 || (chunks > 1 && merge == nullptr)) return (int)cudaErrorInvalidValue;
   void* kernel = debug ? (void*)bounce_kernel<true> : (void*)bounce_kernel<false>;
-  void* args[] = {&state, &uni, &lists, &list_w, &unit, &ops_tri, &n_tris,
-                  &attr,  &attr_cols, &parity, &out, &idx_out};
-  return (int)cudaLaunchKernel(kernel, dim3(nt), dim3(ray_tile / kRays), args, 0,
+  void* args[] = {&state, &uni,      &lists,     &list_w, &unit, &chunk,   &ops_tri,
+                  &n_tris, &attr, &attr_cols, &parity, &out,  &idx_out, &merge};
+  return (int)cudaLaunchKernel(kernel, dim3(nt, chunks), dim3(ray_tile / kRays), args, 0,
                                (cudaStream_t)stream);
 }

@@ -171,6 +171,34 @@ __device__ __forceinline__ void sweep_rays(const float4* sm, int width, int g0, 
   }
 }
 
+// The merge key of a hit (t, g), t in [-0.005, FLOAT_MAX), for kernels
+// that split a tile's worklist over thread blocks (trace_list.cu,
+// bounce.cu): t's order (-0.0 as +0.0) above the index above a flag for
+// -0.0, all inverted, so that the best hit is the largest key (atomicMax)
+// and a slot no chunk wrote (zero) is a miss.  The one-pass sweep keeps
+// the lexicographic minimum of (t, index), -0.0 equal to +0.0, so chunks
+// merged in any order give its bits.
+__device__ __forceinline__ unsigned long long merge_key(float t, int g) {
+  const unsigned b = __float_as_uint(t);
+  const unsigned ord = (b << 1) == 0u ? 0x80000000u : (b >> 31 ? ~b : b | 0x80000000u);
+  const unsigned long long key = ((unsigned long long)ord << 32) |
+                                 ((unsigned long long)(unsigned)g << 1) | (b == 0x80000000u);
+  return ~key;
+}
+
+__device__ __forceinline__ void merged_hit(unsigned long long v, float& t, int& g) {
+  if (v == 0ull) {
+    t = PTT_F_MAX;
+    g = -1;
+    return;
+  }
+  const unsigned long long key = ~v;
+  const unsigned ord = (unsigned)(key >> 32);
+  const unsigned b = (key & 1ull) ? 0x80000000u : (ord >> 31 ? ord & 0x7fffffffu : ~ord);
+  t = __uint_as_float(b);
+  g = (int)((unsigned)(key & 0xffffffffull) >> 1);
+}
+
 // 16-byte asynchronous global -> shared copies (cp.async, Ampere and
 // later), committed as one group per staged run.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

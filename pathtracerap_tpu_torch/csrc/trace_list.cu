@@ -24,12 +24,12 @@
 //    ceil(list width / C); a chunk past the list's end returns at once).
 //    A tile whose list fits one chunk writes its (t, index) directly.
 //    Otherwise each chunk folds its rays' bests into a per-ray 64-bit key
-//    with atomicMax, and the tile's last chunk to finish (a per-tile
-//    counter, after a __threadfence) writes the result.  The one-pass
-//    sweep keeps the lexicographic minimum of (t, index), -0.0 equal to
-//    +0.0, so any order of chunks gives the same bits as long as the key
-//    orders that way: t first, -0.0 taken as +0.0, then the index, and a
-//    flag bit that gives a -0.0 back.
+//    (common.cuh merge_key) with atomicMax, and the tile's last chunk to
+//    finish (a per-tile counter, after a __threadfence) writes the result.
+//    The one-pass sweep keeps the lexicographic minimum of (t, index),
+//    -0.0 equal to +0.0, so any order of chunks gives the same bits as
+//    long as the key orders that way: t first, -0.0 taken as +0.0, then
+//    the index, and a flag bit that gives a -0.0 back.
 // The TPU tiling (512-ray tiles on the MXU, bf16x3 splits, SMEM worklist
 // chunking, streamed DMA above 313 blocks) is not carried over.
 
@@ -43,31 +43,6 @@ constexpr int kSweepRun = 128;  // triangles staged per shared-memory run
 // TRACE_LIST_CHUNK mirror them)
 constexpr int kRays = 2;
 constexpr int kChunk = 1;
-
-// The merge key of a hit (t, g), t in [-0.005, FLOAT_MAX): t's order
-// (-0.0 as +0.0) above the index above a flag for -0.0, all inverted, so
-// that the best hit is the largest key and a slot no chunk wrote (zero)
-// is a miss.
-__device__ __forceinline__ unsigned long long merge_key(float t, int g) {
-  const unsigned b = __float_as_uint(t);
-  const unsigned ord = (b << 1) == 0u ? 0x80000000u : (b >> 31 ? ~b : b | 0x80000000u);
-  const unsigned long long key = ((unsigned long long)ord << 32) |
-                                 ((unsigned long long)(unsigned)g << 1) | (b == 0x80000000u);
-  return ~key;
-}
-
-__device__ __forceinline__ void merged_hit(unsigned long long v, float& t, int& g) {
-  if (v == 0ull) {
-    t = PTT_F_MAX;
-    g = -1;
-    return;
-  }
-  const unsigned long long key = ~v;
-  const unsigned ord = (unsigned)(key >> 32);
-  const unsigned b = (key & 1ull) ? 0x80000000u : (ord >> 31 ? ord & 0x7fffffffu : ~ord);
-  t = __uint_as_float(b);
-  g = (int)((unsigned)(key & 0xffffffffull) >> 1);
-}
 
 }  // namespace
 

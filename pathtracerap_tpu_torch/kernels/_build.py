@@ -47,7 +47,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_trace_list.restype = i
     lib.ptt_trace_list.argtypes = [p, p, i, i, i, i, p, i, p, p, p, i, p]
     lib.ptt_bounce.restype = i
-    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, p, i, p, i, i, p, p, i, p]
+    lib.ptt_bounce.argtypes = [p, p, p, i, i, i, i, i, p, i, p, i, i, p, p, p, i, p]
     lib.ptt_bounce_trace.restype = i
     lib.ptt_bounce_trace.argtypes = [p, p, i, i, i, i, p, i, p, p, p]
     lib.ptt_sample_fused.restype = i

@@ -64,6 +64,13 @@ FUSED_TILE = 256  # rays per thread block of kernel 4 (csrc/megakernel.cu kFused
 # a thread.
 BOUNCE_RAYS_PER_THREAD = 2
 BOUNCE_TRACE_RAYS_PER_THREAD = 2
+# Kernel 2 cuts each tile's worklist into chunks of about BOUNCE_CHUNK_TRIS
+# triangles, each swept by its own thread block, and enqueues at most
+# BOUNCE_MAX_BLOCKS thread blocks a launch (those of chunks past a list's
+# end return at once, about 1.5 ns each); both chosen on the card (bounce_chunk,
+# PERF.md).  The cap is under CUDA's 65,535 chunks a tile (gridDim.y).
+BOUNCE_CHUNK_TRIS = 512
+BOUNCE_MAX_BLOCKS = 1 << 15
 
 
 def use_sub_blocks(world: WorldTriangles) -> bool:
@@ -151,6 +158,18 @@ def bounce_plain(pack: torch.Tensor, u: torch.Tensor, world: WorldTriangles, par
 bounce_plain.calls = 0
 
 
+def bounce_chunk(unit: int, lw: int, nt: int) -> int:
+    """Worklist entries each thread block of kernel 2 sweeps, from the
+    launch's shapes alone: ``unit`` triangles an entry, lists ``lw``
+    entries wide, ``nt`` tiles.  Lists are cut into chunks of about
+    ``BOUNCE_CHUNK_TRIS`` triangles, so that a bounce whose live tiles are
+    fewer than the SMs still spreads their sweeps over the card, and into
+    fewer where ``nt`` tiles of that many chunks would enqueue more than
+    ``BOUNCE_MAX_BLOCKS`` thread blocks."""
+    chunks = max(1, min(-(-lw * unit // BOUNCE_CHUNK_TRIS), BOUNCE_MAX_BLOCKS // max(nt, 1)))
+    return max(1, -(-lw // chunks))
+
+
 def bounce(
     pack: torch.Tensor,  # (N, 10) ray state, N = nt * ray_tile
     u: torch.Tensor,  # (N, 4) this bounce's uniforms
@@ -165,7 +184,10 @@ def bounce(
     shading.  Returns (new state, hit triangle index or -1; -1 as well
     for a dead ray).  ``debug`` selects the explicit-mask accept chain
     (None: ``PTAP_DEBUG``).  Launches kernel 2 for CUDA tensors (counted
-    in ``bounce.launches``), runs the plain version for CPU ones."""
+    in ``bounce.launches``; its worklists cut into chunks of
+    :func:`bounce_chunk` entries, the launches that split a list counted
+    in ``bounce.split_launches`` and their thread blocks in
+    ``bounce.split_blocks``), runs the plain version for CPU ones."""
     debug = resolve_debug(debug)
     n = pack.shape[0]
     nt, lw = lists.shape
@@ -175,12 +197,23 @@ def bounce(
         return bounce_plain(pack, u, world, parity, debug)
     if pack.device.type != "cuda":
         raise ValueError(f"no kernel for device {pack.device}")
+    return _bounce_kernel(pack, u, lists, unit, world, ray_tile, parity, debug,
+                          bounce_chunk(unit, lw, nt))
+
+
+def _bounce_kernel(pack, u, lists, unit, world, ray_tile, parity, debug, chunk):
+    """Kernel 2 on CUDA tensors with worklist chunks of ``chunk`` entries
+    (``bounce`` passes :func:`bounce_chunk`'s; the card's tests and probe
+    also pass a whole list, the unsplit launch, to compare against)."""
+    n = pack.shape[0]
+    nt, lw = lists.shape
     step = 32 * BOUNCE_RAYS_PER_THREAD  # whole warps of threads that own R rays each
     if not step <= ray_tile <= 1024 or ray_tile % step:
         raise ValueError(f"ray_tile must be a multiple of {step} in [{step}, 1024], got {ray_tile}")
     if world.tri_block % unit or unit % SWEEP_RUN:
         raise ValueError(f"unit {unit} must divide tri_block {world.tri_block} and be a "
                          f"multiple of {SWEEP_RUN}")
+    split = 0 < chunk < lw  # a list may span chunks; ptt_bounce refuses a chunk under 1
     dev = pack.device
     ops, n_tris = sweep_operands(world)
     attr = world.attr_rows
@@ -191,6 +224,8 @@ def bounce(
     _check(attr, "attr_rows", torch.float32, (16, ops.shape[0]), dev)
     out = torch.empty_like(pack)
     idx = torch.empty(n, dtype=torch.int32, device=dev)
+    # per-ray merge keys and per-tile counts, for tiles whose lists span chunks
+    merge = torch.zeros(n + nt, dtype=torch.int64, device=dev) if split else None
     err = _build.library().ptt_bounce(
         ctypes.c_void_p(pack.data_ptr()),
         ctypes.c_void_p(u.data_ptr()),
@@ -199,6 +234,7 @@ def bounce(
         ctypes.c_int(lw),
         ctypes.c_int(unit),
         ctypes.c_int(ray_tile),
+        ctypes.c_int(chunk),
         ctypes.c_void_p(ops.data_ptr()),
         ctypes.c_int(n_tris),
         ctypes.c_void_p(attr.data_ptr()),
@@ -206,15 +242,21 @@ def bounce(
         ctypes.c_int(int(parity)),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(idx.data_ptr()),
+        ctypes.c_void_p(merge.data_ptr() if merge is not None else None),
         ctypes.c_int(int(debug)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     _build.check(err, "ptt_bounce")
     bounce.launches += 1
+    if split:
+        bounce.split_launches += 1
+        bounce.split_blocks += nt * -(-lw // chunk)
     return out, idx
 
 
 bounce.launches = 0
+bounce.split_launches = 0
+bounce.split_blocks = 0
 
 
 def bounce_lists(world: WorldTriangles, margin, pack: torch.Tensor, ray_tile: int):

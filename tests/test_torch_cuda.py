@@ -79,10 +79,26 @@ def wavefront(dev, world):
     return pack, u_flat[:, 4:8][pix]
 
 
+def _unsplit(world, pack, u, lists, unit, ray_tile, parity, debug=False):
+    """Kernel 2 with each tile's whole worklist in one thread block: the
+    launch without chunks or merge."""
+    return TM._bounce_kernel(pack, u, lists, unit, world, ray_tile, parity, debug,
+                             max(lists.shape[1], 1))
+
+
+def _same_bounce(a, b, rows=None):
+    """Two kernel-2 outputs (state, index) bit for bit (on ``rows``)."""
+    (s, i), (sp, ip) = a, b
+    if rows is not None:
+        s, i, sp, ip = s[rows], i[rows], sp[rows], ip[rows]
+    return torch.equal(s.view(torch.int32), sp.view(torch.int32)) and torch.equal(i, ip)
+
+
 def _check_bounce(world, pack, u, lists, unit, ray_tile, parities=(True, False)):
     """Kernel 2 against its plain version: the state bit-equal on every
     ray (dead rays pass through), the index on live rays, -1 for the rays
-    of a tile with no live ray."""
+    of a tile with no live ray; and bit-equal on every ray to its launch
+    with each tile's whole list in one thread block."""
     live = pack[:, 9] > 0
     dead_tile = ~live.reshape(-1, ray_tile).any(dim=1).repeat_interleave(ray_tile)
     for parity in parities:
@@ -94,6 +110,7 @@ def _check_bounce(world, pack, u, lists, unit, ray_tile, parities=(True, False))
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
         assert torch.equal(idx[live], ridx[live])
         assert (idx[dead_tile] == -1).all()
+        assert _same_bounce((out, idx), _unsplit(world, pack, u, lists, unit, ray_tile, parity))
 
 
 def test_bounce_kernel_matches_plain(dev, world, wavefront):
@@ -607,6 +624,162 @@ def test_debug_fused_kernel_matches_fast(dev, world):
     dbg = TM.sample_fused(w16, prim, u[0], world, 5, False, False, debug=True)
     torch.cuda.synchronize()
     assert torch.equal(dbg, fast)
+
+
+# --------------------------------------------------------------------------
+# kernel 2's worklists split over thread blocks
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def big_wavefront(dev, big_world):
+    """Bounce 1 of a sorted 4-sample wavefront of 64x32 rays from inside
+    the 391-block world's room: (pack (8192, 10), u (8192, 4)), 16 tiles
+    of 512 rays."""
+    world = big_world
+    ro, rd = generate_rays(CameraConfig(**INSIDE), (64, 32), device=dev)
+    rd = normalize(rd)
+    pack, u_flat = TM.first_wavefront(world, ro, rd, TT.trace_pallas(world, ro, rd),
+                                      prng_key(3, dev), 0, 4, ro.shape[0], 6, True, 0)
+    pix = torch.arange(pack.shape[0], device=dev)
+    pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
+    return pack, u_flat[:, 4:8][pix]
+
+
+def _bounce_plain_over(pack, u, world, n_blocks, parity, debug):
+    """Kernel 2's plain version over blocks 0 to n_blocks - 1 alone (a
+    miss on every ray for none)."""
+    if n_blocks:
+        t, idx = TT.nearest_hit_fused_plain(TM._ray_vectors(pack), world.fused_ops, n_blocks,
+                                            world.tri_block, debug)
+    else:
+        t = torch.full((pack.shape[0],), TT.F_MAX, device=pack.device)
+        idx = torch.full((pack.shape[0],), -1, dtype=torch.int32, device=pack.device)
+    return TM._shade_pack(pack, TM._attr_hits(world, t, idx), u, parity), idx
+
+
+# worklist lengths either side of kernel 2's chunk on the 391-block world's
+# 16 tiles, lists of three and of many chunks, and the whole world
+BIG_TILES = 16
+_C2 = TM.bounce_chunk(512, 391, BIG_TILES)
+B2_LENGTHS = tuple(sorted({_C2 - 1, _C2, _C2 + 1, 2 * _C2 + 1, 4 * _C2, 9 * _C2 + 1, 391} - {0}))
+
+
+@pytest.mark.parametrize("length", B2_LENGTHS)
+@pytest.mark.parametrize("debug", [False, True], ids=["fast", "debug"])
+def test_bounce_kernel_on_list_lengths(dev, big_world, big_wavefront, length, debug):
+    """Kernel 2 in block mode on worklists of ``length`` blocks (blocks 0
+    to length - 1 in a shuffled order per tile), with one live ray in tile
+    0, an empty list in tile 1 and no live ray in tile 2 (its list kept),
+    in both parities: bit-equal on every ray's state and every live ray's
+    index to its plain version over the same blocks, and on every ray to
+    its launch with one chunk a tile; every listed tile's chunks are
+    enqueued in one launch."""
+    world = big_world
+    pack, u = big_wavefront
+    pack = pack.clone()
+    tile = 512
+    nt = pack.shape[0] // tile
+    assert nt == BIG_TILES and TM.bounce_chunk(world.tri_block, 391, nt) == _C2
+    assert pack[0, 9] > 0
+    pack[1:tile, 9] = 0.0
+    pack[2 * tile:3 * tile, 9] = 0.0
+    g = torch.Generator().manual_seed(length)
+    lists = torch.full((nt, world.block_aabb.shape[0]), -1, dtype=torch.int32)
+    for k in range(nt):
+        lists[k, :length] = torch.randperm(length, generator=g)
+    lists[1] = -1
+    lists = lists.to(dev)
+    live = pack[:, 9] > 0
+    empty = torch.zeros(pack.shape[0], dtype=torch.bool, device=dev)
+    empty[tile:2 * tile] = True
+    chunks = -(-lists.shape[1] // _C2)
+    for parity in (True, False):
+        before = (TM.bounce.launches, TM.bounce.split_launches, TM.bounce.split_blocks)
+        out = TM.bounce(pack, u, lists, world.tri_block, world, tile, parity, debug)
+        torch.cuda.synchronize()
+        assert (TM.bounce.launches, TM.bounce.split_launches, TM.bounce.split_blocks) == (
+            before[0] + 1, before[1] + 1, before[2] + nt * chunks)
+        ref = _bounce_plain_over(pack, u, world, length, parity, debug)
+        ref_empty = _bounce_plain_over(pack, u, world, 0, parity, debug)
+        assert _same_bounce(out, ref, live & ~empty)
+        assert _same_bounce(out, ref_empty, live & empty)
+        assert torch.equal(out[0][~live].view(torch.int32), pack[~live].view(torch.int32))
+        assert (out[1][~live] == -1).all()
+        one = _unsplit(world, pack, u, lists, world.tri_block, tile, parity, debug)
+        assert _same_bounce(out, one)
+    assert (ref[1][live & ~empty] >= 0).any()
+
+
+def _twin_block_world(world, src: int, dst: int):
+    """``world`` with block ``src`` copied over block ``dst``: each of its
+    triangles has a twin ``(dst - src) * tri_block`` indices away, hit at
+    the same t by every ray."""
+    import dataclasses
+
+    tb = world.tri_block
+    ops_tri, fused, attr = world.ops_tri.clone(), world.fused_ops.clone(), world.attr_rows.clone()
+    ops_tri[dst * tb:(dst + 1) * tb] = ops_tri[src * tb:(src + 1) * tb]
+    fused[:, dst * 4 * tb:(dst + 1) * 4 * tb] = fused[:, src * 4 * tb:(src + 1) * 4 * tb]
+    attr[:, dst * tb:(dst + 1) * tb] = attr[:, src * tb:(src + 1) * tb]
+    return dataclasses.replace(world, ops_tri=ops_tri, fused_ops=fused, attr_rows=attr)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3])
+@pytest.mark.parametrize("debug", [False, True], ids=["fast", "debug"])
+def test_bounce_kernel_ties_across_chunks(dev, world, wavefront, chunk, debug):
+    """The reference world's most-hit block copied over a later one: a ray
+    that hits it meets two triangles at an equal t in different chunks,
+    listed with the higher index first and last.  Kernel 2 split into
+    chunks of ``chunk`` blocks keeps the lower index, as its plain version
+    and its launch with one chunk a tile do, in both parities."""
+    pack, u = wavefront
+    tb, nb = world.tri_block, world.block_aabb.shape[0]
+    live = pack[:, 9] > 0
+    _, hit = TM.bounce_plain(pack, u, world, True)
+    real = world.n_valid // tb  # the blocks of real triangles only
+    src = int(torch.bincount((hit[live & (hit >= 0)] // tb).long(), minlength=nb)[:real - 1].argmax())
+    dst = real - 1
+    twins = _twin_block_world(world, src, dst)
+    others = [b for b in range(nb) if b not in (src, dst)]
+    tile = 512
+    nt = pack.shape[0] // tile
+    for order in ([dst, *others, src], [src, *others, dst]):
+        lists = torch.tensor([order] * nt, dtype=torch.int32, device=dev)
+        for parity in (True, False):
+            ref, ridx = TM.bounce_plain(pack, u, twins, parity, debug)
+            out = TM._bounce_kernel(pack, u, lists, tb, twins, tile, parity, debug, chunk)
+            torch.cuda.synchronize()
+            assert _same_bounce(out, (ref, ridx), live)
+            assert torch.equal(out[0].view(torch.int32), ref.view(torch.int32))
+            assert _same_bounce(out, _unsplit(twins, pack, u, lists, tb, tile, parity, debug))
+    tied = live & (ridx >= src * tb) & (ridx < (src + 1) * tb)
+    assert tied.sum() > 0
+
+
+def test_bounce_launch_refuses_bad_grids(dev, world, wavefront):
+    """ptt_bounce refuses, before it launches, a chunk under one entry, a
+    grid of more than 65,535 chunks a tile, and a split with no merge
+    buffer; with no tile it launches nothing.  The wrapper raises its
+    refusal."""
+    from pathtracerap_tpu_torch.kernels import _build
+
+    lib = _build.library()
+
+    def launch(nt, list_w, chunk, merge=None):
+        return lib.ptt_bounce(None, None, None, nt, list_w, 512, 512, chunk, None, 0, None, 0, 1,
+                              None, None, merge, 0, None)
+
+    invalid = 1  # cudaErrorInvalidValue
+    assert launch(1, 65536, 1, 8) == invalid
+    assert launch(1, 8, 0, 8) == invalid
+    assert launch(1, 8, 4) == invalid
+    assert launch(0, 65536, 1) == 0
+    pack, u = wavefront
+    ray_tile = TM.binned_ray_tile(world)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    with pytest.raises(RuntimeError, match="ptt_bounce"):
+        TM._bounce_kernel(pack, u, lists, unit, world, ray_tile, True, False, 0)
 
 
 # --------------------------------------------------------------------------

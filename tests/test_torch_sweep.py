@@ -24,6 +24,7 @@ from pathtracerap_tpu_torch.kernels import megakernel as TM
 from pathtracerap_tpu_torch.kernels import prof as KP
 from pathtracerap_tpu_torch.kernels import trace as TT
 from pathtracerap_tpu_torch.ops.math import normalize, normalize_rsqrt
+from pathtracerap_tpu_torch.ops.rng import RNG_TILE
 from pathtracerap_tpu_torch.ops.intersect import HitRecord
 from pathtracerap_tpu_torch.ops.plucker import (
     CLUSTER_GROUP, SUB_BLOCK, bake_world_triangles, cluster_group_aabb, dense_runs, tri_major_ops,
@@ -198,7 +199,7 @@ def test_padding_cut_is_exact(worlds, name, debug):
 
 
 def _merge_key(t, idx):
-    """csrc/trace_list.cu's merge_key before its inversion: the order of t
+    """csrc/common.cuh's merge_key before its inversion: the order of t
     (-0.0 as +0.0) above the index above a flag for -0.0; the smallest key
     is the best hit.  The kernel's unsigned 64-bit key less 2^63, so that
     int64 orders it the same way."""
@@ -210,7 +211,7 @@ def _merge_key(t, idx):
 
 
 def _merged_hit(key):
-    """csrc/trace_list.cu's merged_hit: (t, idx int32) of the smallest
+    """csrc/common.cuh's merged_hit: (t, idx int32) of the smallest
     keys; MISS_KEY is a miss."""
     ord_ = (key >> 32) + 0x80000000
     b = torch.where(ord_ >= 0x80000000, ord_ & 0x7FFFFFFF, 0xFFFFFFFF - ord_)
@@ -358,6 +359,78 @@ def test_merge_key_orders_hits():
     assert order.tolist() == [0, 4, 2, 1, 3, 5, 6, 7, 8]
     back_t, back_i = _merged_hit(key)
     assert torch.equal(back_t.view(torch.int32), t.view(torch.int32)) and torch.equal(back_i, i)
+
+
+# --------------------------------------------------------------------------
+# kernel 2's worklists split over thread blocks: the chunk rule
+# --------------------------------------------------------------------------
+
+
+def _binned_shapes(world, samples: int):
+    """(unit, list width, tiles) of the binned engine's kernel-2 launches
+    on ``world``, for a slab of ``samples`` samples."""
+    sub = TM.use_sub_blocks(world)
+    unit = TM.SUB_BLOCK if sub else world.tri_block
+    lw = (world.sub_aabb if sub else world.block_aabb).shape[0]
+    nt = samples * TM.BINNED_SLAB_TILES * RNG_TILE // TM.binned_ray_tile(world)
+    return unit, lw, nt
+
+
+def _chunks(lw: int, chunk: int) -> int:
+    """Chunks a tile in kernel 2's grid: ptt_bounce's ceil(lw / chunk),
+    one for an empty list."""
+    return -(-lw // chunk) if lw else 1
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+def test_bounce_chunk_keeps_the_reference_lists_whole(worlds, samples):
+    """The reference scene's sub-block lists (32 entries of 128 triangles,
+    in 256-ray tiles) are no longer kept whole: they split into chunks of
+    4 sub-blocks, 8 a tile, which beat one thread block a tile on every
+    bounce on the card (PERF.md)."""
+    unit, lw, nt = _binned_shapes(_world(worlds, "reference"), samples)
+    assert (unit, lw) == (SUB_BLOCK, 32)
+    chunk = TM.bounce_chunk(unit, lw, nt)
+    assert (chunk, _chunks(lw, chunk)) == (4, 8)
+    assert chunk * unit == TM.BOUNCE_CHUNK_TRIS
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+@pytest.mark.parametrize("blocks", [None, 293], ids=["block_lists", "highpoly"])
+def test_bounce_chunk_splits_long_block_lists(worlds, samples, blocks):
+    """Block lists above 64 blocks (a 96-subdivision sphere's, and the
+    highpoly configuration's 293 blocks of 512 in 512-ray tiles) split
+    into chunks of at least BOUNCE_CHUNK_TRIS triangles, within the
+    launch's cap on thread blocks."""
+    unit, lw, nt = _binned_shapes(_world(worlds, "block_lists"), samples)
+    assert unit == 512 and lw > TM.SUB_MAX_BLOCKS
+    if blocks is not None:
+        lw = blocks
+    chunk = TM.bounce_chunk(unit, lw, nt)
+    chunks = _chunks(lw, chunk)
+    assert chunks > 1 and chunk * unit >= TM.BOUNCE_CHUNK_TRIS
+    assert nt * chunks <= TM.BOUNCE_MAX_BLOCKS
+    if blocks == 293 and samples == 1:  # the highpoly-render cell's launches
+        assert (nt, chunk, chunks) == (256, 3, 98)
+
+
+@pytest.mark.parametrize("lw", [0, 1, 3, 4, 5, 7, 16, 17, 293, 701, 100_000, 10_000_000])
+def test_bounce_chunk_stays_in_the_grid(lw):
+    """For any shapes the rule gives a chunk of 1 to lw entries whose grid
+    ptt_bounce launches: at most 65,535 chunks a tile (CUDA's gridDim.y;
+    the card's tests hold the launch's refusal above it), and where a list
+    splits, at most BOUNCE_MAX_BLOCKS thread blocks; a list of at most
+    BOUNCE_CHUNK_TRIS triangles stays whole."""
+    assert TM.BOUNCE_MAX_BLOCKS <= 65535
+    for unit in (SUB_BLOCK, 512):
+        for nt in (1, 16, 256, 2048, 1 << 20):
+            chunk = TM.bounce_chunk(unit, lw, nt)
+            assert 1 <= chunk <= max(lw, 1)
+            chunks = _chunks(lw, chunk)
+            assert chunks <= 65535
+            assert chunks == 1 or nt * chunks <= TM.BOUNCE_MAX_BLOCKS
+            if lw * unit <= TM.BOUNCE_CHUNK_TRIS:
+                assert chunks == 1
 
 
 @pytest.mark.parametrize("source, name, value", [
