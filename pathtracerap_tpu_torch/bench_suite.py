@@ -88,6 +88,15 @@ _ROOM_CAMERA = CameraConfig(
     plane_y=(-96.0, 96.0),
     plane_z=240.0,
 )
+# _ROOM_CAMERA stands outside the 400-unit room, so its rays stop on the front
+# wall; this camera stands inside it, facing the sphere, so that rays also
+# meet the sphere's triangles
+INSIDE_CAMERA = CameraConfig(
+    position=(0.0, 0.0, 190.0),
+    plane_x=(-60.0, 60.0),
+    plane_y=(-48.0, 48.0),
+    plane_z=120.0,
+)
 
 
 def suite_configs() -> Dict[str, dict]:

@@ -41,8 +41,8 @@ class RenderConfig:
     max_bounces: int = constants.MAX_BOUNCES
     camera: CameraConfig = dataclasses.field(default_factory=CameraConfig)
 
-    # traversal engine: "fused", "binned", "pallas" and "mxu" are ported;
-    # "parity" raises, naming its ROADMAP item
+    # traversal engine: all five of render/wavefront.py's ENGINES are ported;
+    # "parity" is the grid DDA (kernel G1, kernels/dda.py)
     engine: str = "mxu"
 
     # True reproduces the reference's behavioural quirks (reflectRay,

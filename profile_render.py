@@ -46,26 +46,6 @@ TRAIN_SPP = 8  # bench.py:89
 MAX_BOUNCES = 5
 TOP = 30  # kernel names listed
 CORNELL_RES, CORNELL_BOUNCES = (256, 256), 4  # bench_suite.py:106-114
-CORNELL_CAMERA = dict(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0), plane_y=(-40.0, 40.0),
-                      plane_z=100.0)
-# the suite's room camera stands outside the room; this one inside it
-INSIDE_CAMERA = dict(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0), plane_y=(-48.0, 48.0),
-                     plane_z=120.0)
-
-
-def busy_us(spans) -> float:
-    """Length of the union of the (start, end) intervals."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
 
 
 def render_fn(dev, quality: bool = False):
@@ -80,15 +60,17 @@ def render_fn(dev, quality: bool = False):
 
 
 def large_fn(dev, which: str):
-    from pathtracerap_tpu_torch import CameraConfig, RenderConfig, Renderer
-    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, build_highpoly_scene, suite_configs
+    from pathtracerap_tpu_torch import RenderConfig, Renderer
+    from pathtracerap_tpu_torch.bench_suite import (
+        _ROOM_CAMERA, INSIDE_CAMERA, build_highpoly_scene, suite_configs,
+    )
 
     spec = suite_configs()["megascene"]
     if which == "megascene":
         host, camera = spec["scene"](), _ROOM_CAMERA
     else:
         host = build_highpoly_scene(subdiv=736, use_asset=False)
-        camera = CameraConfig(**INSIDE_CAMERA) if which == "beyond_inside" else _ROOM_CAMERA
+        camera = INSIDE_CAMERA if which == "beyond_inside" else _ROOM_CAMERA
     cfg = RenderConfig(**{**spec["cfg"], "samples_per_pixel": spec["measure_spp"],
                           "camera": camera}, engine="fused")
     r = Renderer(host.to_device(dev), cfg, device=dev)
@@ -105,12 +87,13 @@ def train_fn(dev, param: str):
     key = prng_key(0, dev)
     if param == "pallas":
         from pathtracerap_tpu_torch import build_cornell_box_scene
+        from pathtracerap_tpu_torch.bench_suite import suite_configs
 
         scene = build_cornell_box_scene().to_device(dev)
         params = extract_params(scene, ("mat_color",))
         target = torch.zeros((CORNELL_RES[0] * CORNELL_RES[1], 3), device=dev)
-        step = make_train_step(scene, CameraConfig(**CORNELL_CAMERA), CORNELL_RES, TRAIN_SPP,
-                               CORNELL_BOUNCES)
+        step = make_train_step(scene, suite_configs()["cornell"]["cfg"]["camera"], CORNELL_RES,
+                               TRAIN_SPP, CORNELL_BOUNCES)
         return lambda: step(params, target, key), {"train": "mat_color", "engine": "pallas"}
     scene = build_reference_scene().to_device(dev)
     params = extract_params(scene, (param,))
@@ -128,6 +111,8 @@ def train_fn(dev, param: str):
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ptbench.devtrace import union_us
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     what = ap.add_mutually_exclusive_group()
@@ -170,7 +155,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         pwall = wall()
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in kern) / 1e6
+    busy = union_us((e.time_range.start, e.time_range.end) for e in kern) / 1e6
     print(json.dumps({
         **what, "warm_s": walls, "profiled_wall_s": pwall,
         "kernels": len(kern), "device_busy_s": busy, "busy_share_of_profiled_wall": busy / pwall,

@@ -12,9 +12,15 @@ alone, under ``gloo``.  Every rank runs the same collectives; rank 0 writes
 ``OUT_PREFIX.rank{r}.npz``.  The ``dp`` job (the default) runs the
 data-parallel layer; the ``ring`` job the geometry ring
 (``parallel/geometry.py``): its renders and train steps, each rank's
-payloads moving over ``batch_isend_irecv``.
+payloads moving over ``batch_isend_irecv``.  The ``card`` job runs both
+layers at full size with every rank on ``cuda:0`` (``gloo`` again, the
+payloads through the host) for ``tests/test_torch_card_paths.py``: each
+rank writes ``OUT_PREFIX.rank{r}.json`` (its stats and the launches of
+each path) and rank 0 ``OUT_PREFIX.npz``.
 """
 
+import functools
+import importlib.util
 import json
 import os
 import sys
@@ -46,6 +52,62 @@ RING_RENDERS = {"fused": ("fused", 4, 3, 64), "dense": ("dense", 4, 3, 64)}
 RING_STEPS = {"mat_color": (("mat_color",), True, 0.0, 0),
               "vertex_pos": (("mat_color", "vertex_pos"), False, 0.3, 2)}
 RING_STEP_KW = dict(n_samples=2, max_bounces=3, tile_size=64)
+# the card job: the reference scene's data-parallel render and sharded
+# mat_color step at CARD_RES x CARD_SPP x CARD_BOUNCES; ring renders name ->
+# (scene, resolution, spp, bounces, engine) at CARD_RING_TILE, the megascene
+# at the suite's settings; ring steps name -> (scene, resolution, spp,
+# bounces, tile, params, parity, target, seed)
+CARD_RES, CARD_SPP, CARD_BOUNCES = (1000, 800), 2, 5
+CARD_RING_TILE = 8192
+CARD_RING_RENDERS = {
+    "reference_fused": ("reference", CARD_RES, 2, 5, "fused"),
+    "megascene_fused": ("megascene", (512, 512), 2, 6, "fused"),
+    "megascene_dense": ("megascene", (512, 512), 2, 6, "dense"),
+}
+CARD_RING_STEPS = {
+    "mat_color": ("reference", CARD_RES, 2, 5, CARD_RING_TILE, ("mat_color",), True, 0.0, 0),
+    "vertex_pos": ("cornell", (200, 160), 2, 3, 4000, ("mat_color", "vertex_pos"), False, 0.3, 2),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def smoke():
+    """``chip_smoke.py`` as a module: the registry of the kernels' wrappers
+    and plain versions, and the wavefronts its timer reads."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def kernel_counts() -> dict:
+    """The CUDA wrappers' launches and the plain versions' calls (``plain``)
+    so far in this process."""
+    return {**{k: f.launches for k, f in smoke().wrappers().items()}, "plain": smoke().plain_calls()}
+
+
+def launched(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` and the launches and plain calls it made."""
+    before = kernel_counts()
+    out = fn(*args, **kwargs)
+    return out, {k: v - before[k] for k, v in kernel_counts().items()}
+
+
+def card_scene(name: str, dev):
+    from pathtracerap_tpu_torch import build_cornell_box_scene, build_reference_scene
+    from pathtracerap_tpu_torch.bench_suite import suite_configs
+
+    if name == "megascene":
+        return suite_configs()["megascene"]["scene"]().to_device(dev)
+    return (build_reference_scene() if name == "reference" else build_cornell_box_scene()).to_device(dev)
+
+
+def card_camera(scene_name: str):
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, suite_configs
+
+    return {"megascene": _ROOM_CAMERA,
+            "cornell": suite_configs()["cornell"]["cfg"]["camera"]}.get(scene_name, CameraConfig())
 
 
 def run_job(out_prefix: str, n: int = 2, timeout: float = 120.0, job: str = "dp"):
@@ -167,5 +229,71 @@ def main(out_prefix: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+def card_main(out_prefix: str) -> None:
+    """The card job: the liveness probe, the data-parallel binned render,
+    the sharded mat_color step with ``overlap_chunks`` 1 and 2, each of
+    CARD_RING_RENDERS through ``render_image_geometry_sharded`` (with its
+    stats), each of CARD_RING_STEPS through
+    ``make_geometry_sharded_train_step``, and the dry run's geometry half;
+    with each path's launches."""
+    import numpy as np
+    import torch
+
+    from pathtracerap_tpu_torch import CameraConfig, RenderConfig
+    from pathtracerap_tpu_torch.diff import extract_params, make_sharded_train_step
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.parallel import default_mesh, init_distributed, render_image_dp
+    from pathtracerap_tpu_torch.parallel import geometry as G
+    from pathtracerap_tpu_torch.parallel.dryrun import CAMERA, geometry_half
+    from pathtracerap_tpu_torch.utils.failure import liveness_probe
+
+    info = init_distributed()
+    mesh = default_mesh()
+    dev = mesh.device
+    scenes = {name: card_scene(name, dev) for name in ("reference", "megascene", "cornell")}
+    meta = {"info": info, "backend": mesh.backend, "device": str(dev), "liveness": liveness_probe()}
+    arrays = {}
+    ref = scenes["reference"]
+    cfg = RenderConfig(resolution=CARD_RES, samples_per_pixel=CARD_SPP, max_bounces=CARD_BOUNCES,
+                       engine="fused")
+    image, meta["dp_render"] = launched(render_image_dp, ref, cfg, mesh=mesh)
+    arrays["dp_render"] = image.cpu().numpy()
+    n = CARD_RES[0] * CARD_RES[1]
+    for chunks in (1, 2):
+        step = make_sharded_train_step(ref, CameraConfig(), CARD_RES, CARD_SPP, CARD_BOUNCES, mesh,
+                                       engine="fused", overlap_chunks=chunks)
+        (loss, new), counts = launched(step, extract_params(ref, ("mat_color",)),
+                                       torch.zeros((n, 3), device=dev), prng_key(0, dev))
+        meta[f"step_chunks{chunks}"] = {**counts, "loss": float(loss)}
+        arrays[f"step_chunks{chunks}"] = new["mat_color"].cpu().numpy()
+    for name, (scene_name, res, spp, bounces, engine) in CARD_RING_RENDERS.items():
+        cfg = RenderConfig(resolution=res, samples_per_pixel=spp, max_bounces=bounces,
+                           camera=card_camera(scene_name), engine="pallas")
+        stats = {}
+        img, counts = launched(G.render_image_geometry_sharded, scenes[scene_name], cfg, mesh=mesh,
+                               tile_size=CARD_RING_TILE, engine=engine, stats=stats)
+        meta[f"ring_{name}"] = {**stats, **counts}
+        arrays[f"ring_{name}"] = img.cpu().numpy()
+    for name, (scene_name, res, spp, bounces, tile, names, parity, target, seed) in (
+            CARD_RING_STEPS.items()):
+        scene = scenes[scene_name]
+        step = G.make_geometry_sharded_train_step(scene, card_camera(scene_name), res, spp, bounces,
+                                                  mesh=mesh, tile_size=tile, parity=parity,
+                                                  param_names=names)
+        (loss, new), counts = launched(step, extract_params(scene, names),
+                                       torch.full((res[0] * res[1], 3), target, device=dev),
+                                       prng_key(seed, dev))
+        meta[f"ring_step_{name}"] = {**counts, "loss": loss.item()}
+        for k, v in new.items():
+            arrays[f"ring_step_{name}_{k}"] = v.cpu().numpy()
+    meta["dryrun_geometry"] = geometry_half(scenes["cornell"], CameraConfig(**CAMERA), mesh)
+    with open(f"{out_prefix}.rank{mesh.rank}.json", "w") as f:
+        json.dump(meta, f)
+    if mesh.rank == 0:
+        np.savez(f"{out_prefix}.npz", **arrays)
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
-    (ring_main if sys.argv[2:3] == ["ring"] else main)(sys.argv[1])
+    {"ring": ring_main, "card": card_main}.get(sys.argv[2] if len(sys.argv) > 2 else "dp",
+                                               main)(sys.argv[1])

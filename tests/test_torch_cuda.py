@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_distributed_worker as W
 from pathtracerap_tpu_torch import (
     CameraConfig, RenderConfig, Renderer, build_cornell_box_scene, build_reference_scene, read_bmp,
 )
+from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, INSIDE_CAMERA, suite_configs
 from pathtracerap_tpu_torch.kernels import megakernel as TM
 from pathtracerap_tpu_torch.kernels import trace as TT
 from pathtracerap_tpu_torch.ops.math import normalize, normalize_rsqrt
@@ -28,9 +30,7 @@ from pathtracerap_tpu_torch.render.camera import generate_rays
 
 pytestmark = pytest.mark.cuda
 
-# a camera inside the room of the suite's scenes, facing the sphere
-INSIDE = dict(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0), plane_y=(-48.0, 48.0),
-              plane_z=120.0)
+CORNELL_CAM = suite_configs()["cornell"]["cfg"]["camera"]
 GOLDEN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "assets", "golden", "reference_scene.bmp",
@@ -51,20 +51,30 @@ def world(dev):
     return bake_world_triangles(build_reference_scene().to_device(dev))
 
 
-def test_trace_list_kernel_matches_plain(dev, world):
-    ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
+@pytest.mark.parametrize("scene_name, res", [
+    ("reference", (256, 128)), ("reference", (1000, 800)), ("cornell", (256, 256)),
+], ids=["reference_256x128", "reference_1000x800", "cornell_256x256"])
+def test_trace_list_kernel_matches_plain(dev, world, scene_name, res):
+    """Kernel 1 on a camera's primaries (the render's 800,000 and the
+    Cornell box's 65,536 among them): the index equal on 99.99 % of rays, t
+    within rtol 1e-5, both bit-equal on every live ray."""
+    if scene_name == "cornell":
+        world = bake_world_triangles(build_cornell_box_scene().to_device(dev))
+    ro, rd = generate_rays(CORNELL_CAM if scene_name == "cornell" else CameraConfig(), res,
+                           device=dev)
     w16, lists = TT.primary_inputs(world, ro, rd)
     before = TT.nearest_hit_fused.launches
     t, idx = TT.nearest_hit_fused(w16, world, lists, TT.RAY_TILE)
     torch.cuda.synchronize()
     assert TT.nearest_hit_fused.launches == before + 1
     tp, ip = TT.nearest_hit_fused_plain(w16, world.fused_ops, world.block_aabb.shape[0], world.tri_block)
-    same = idx == ip
+    live = w16[:, 10] > 0  # the padding to whole tiles is dead
+    same = (idx == ip)[live]
     assert same.float().mean().item() >= 0.9999
-    both = same & (ip >= 0)
-    rel = ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both]
+    both = same & (ip[live] >= 0)
+    rel = ((t - tp).abs() / tp.abs().clamp_min(1e-30))[live][both]
     assert rel.max().item() <= 1e-5
-    assert _bits_equal((t, idx), (tp, ip), w16[:, 10] > 0)
+    assert _bits_equal((t, idx), (tp, ip), live)
 
 
 @pytest.fixture(scope="module")
@@ -171,39 +181,51 @@ def test_train_step_on_gpu_matches_cpu(dev):
         scene = build_reference_scene().to_device(d)
         target = torch.full((512, 3), 0.25, device=d)
         TT.nearest_hit_fused_plain.calls = TM.bounce_trace_plain.calls = 0
+        before = TM.bounce_trace.launches
         out[d.type] = loss_and_grad(extract_params(scene), scene, target, prng_key(1, d),
                                     CameraConfig(), (32, 16), 2, 4, engine="fused")
         if d.type == "cuda":
             assert TT.nearest_hit_fused_plain.calls == TM.bounce_trace_plain.calls == 0
+            assert TM.bounce_trace.launches > before
             step = make_train_step(scene, CameraConfig(), (32, 16), 2, 4, engine="fused")
             loss, new = step(extract_params(scene), target, prng_key(1, d))
             assert torch.equal(loss, out["cuda"][0])
+            grad = out["cuda"][1]["mat_color"]
+            assert torch.equal(new["mat_color"], scene.mat_color - 0.05 * grad)
     (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
     np.testing.assert_allclose(l_g.item(), l_c.item(), rtol=1e-5)
     np.testing.assert_allclose(g_g["mat_color"].cpu().numpy(), g_c["mat_color"].numpy(),
                                rtol=1e-4, atol=1e-7)
 
 
-def test_render_on_gpu_matches_golden(dev):
-    cfg = RenderConfig(resolution=(100, 80), samples_per_pixel=4, max_bounces=5, engine="fused")
+@pytest.mark.parametrize("res, spp, seed, f, g", [
+    ((100, 80), 4, 5, 4, 10),
+    ((1000, 800), 24, 0, 8, 1),  # the main path, at Renderer's default seed
+], ids=["100x80", "1000x800"])
+def test_render_on_gpu_matches_golden(dev, res, spp, seed, f, g):
+    """The reference scene through Renderer(engine="fused"), routed to the
+    binned engine on kernels 1 and 2: a finite image of mean in (0.01, 1)
+    within mean |diff| 0.08 and correlation 0.9 of the golden, both
+    averaged over f x f pixels (the golden first over g x g)."""
+    cfg = RenderConfig(resolution=res, samples_per_pixel=spp, max_bounces=5, engine="fused")
     r = Renderer(build_reference_scene().to_device(dev), cfg, device=dev)
+    assert r.engine == "binned"
     TT.nearest_hit_fused_plain.calls = TM.bounce_plain.calls = 0
-    img = r.render(seed=5).cpu().numpy()
+    launches = TT.nearest_hit_fused.launches, TM.bounce.launches
+    img = r.render(seed=seed).cpu().numpy()
     assert TT.nearest_hit_fused_plain.calls == TM.bounce_plain.calls == 0
-    assert np.isfinite(img).all()
+    assert TT.nearest_hit_fused.launches > launches[0] and TM.bounce.launches > launches[1]
+    assert img.shape == (res[1], res[0], 3) and np.isfinite(img).all()
+    assert 0.01 < img.mean() < 1.0
     golden = read_bmp(GOLDEN).astype(np.float32) / 255.0
 
     def down(x, f):
         h, w, _ = x.shape
         return x.reshape(h // f, f, w // f, f, 3).mean(axis=(1, 3))
 
-    a, b = down(img, 4), down(down(golden, 10), 4)
+    a, b = down(img, f), down(down(golden, g), f)
     assert float(np.abs(a - b).mean()) < 0.08
     assert float(np.corrcoef(a.ravel(), b.ravel())[0, 1]) > 0.9
-
-
-CORNELL_CAM = CameraConfig(position=(0.0, 0.0, 150.0), plane_x=(-40.0, 40.0),
-                           plane_y=(-40.0, 40.0), plane_z=100.0)  # bench_suite.py:109-112
 
 
 def _fused_case(world, dev, camera, res, jitter: bool):
@@ -302,21 +324,27 @@ def test_fused_kernel_gated_sweep_matches_plain(dev):
     _check_fused(world, w16, prim, u[0], False, False)
 
 
-def test_cornell_step_on_gpu_matches_cpu(dev):
-    """The emit_idx train step on the Cornell box at 32x16, 2 spp, 4
-    bounces through kernels 1 and 4 against the same on CPU tensors."""
+@pytest.mark.parametrize("engine", ["fused", "pallas"])
+def test_cornell_step_on_gpu_matches_cpu(dev, engine):
+    """The Cornell box's train step at 32x16, 2 spp, 4 bounces against the
+    same on CPU tensors: the emit_idx step through kernels 1 and 4
+    (``fused``), the default diff engine's through kernel 1 (``pallas``)."""
     from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
 
     out = {}
     for d in (dev, torch.device("cpu")):
         scene = build_cornell_box_scene().to_device(d)
         target = torch.full((512, 3), 0.25, device=d)
-        TM.sample_fused_plain.calls = 0
-        before = TM.sample_fused.launches
+        TM.sample_fused_plain.calls = TT.nearest_hit_fused_plain.calls = 0
+        before = TM.sample_fused.launches, TT.nearest_hit_fused.launches
         out[d.type] = loss_and_grad(extract_params(scene), scene, target, prng_key(1, d),
-                                    CORNELL_CAM, (32, 16), 2, 4, engine="fused")
+                                    CORNELL_CAM, (32, 16), 2, 4, engine=engine)
         if d.type == "cuda":
-            assert TM.sample_fused_plain.calls == 0 and TM.sample_fused.launches == before + 2
+            assert TM.sample_fused_plain.calls == TT.nearest_hit_fused_plain.calls == 0
+            if engine == "fused":
+                assert TM.sample_fused.launches == before[0] + 2
+            else:
+                assert TT.nearest_hit_fused.launches > before[1]
     (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
     np.testing.assert_allclose(l_g.item(), l_c.item(), rtol=1e-5)
     np.testing.assert_allclose(g_g["mat_color"].cpu().numpy(), g_c["mat_color"].numpy(),
@@ -384,19 +412,44 @@ def _dense_world_and_rays(dev, camera, res, alive=None):
     return world, TT.dense_inputs(ro, rd, alive)
 
 
-def test_dense_kernel_unculled_equals_plain(dev):
+@pytest.fixture(scope="module")
+def beyond_waves(dev):
+    """The 2,163,864-triangle world (no fused pack) and the wavefronts
+    kernel 5 traces there (chip_smoke.py's ``beyond_wavefronts``: the
+    512x512 primaries and bounce 1 from the suite's room camera and from
+    INSIDE_CAMERA), each cut to its first PLAIN_SLICE rays: (world, {name:
+    (w, wo)})."""
+    from pathtracerap_tpu_torch.bench_suite import build_highpoly_scene
+
+    smoke = W.smoke()
+    world = bake_world_triangles(
+        build_highpoly_scene(subdiv=smoke.BEYOND_SUBDIV, use_asset=False).to_device(dev))
+    assert world.fused_ops is None
+    m = smoke.PLAIN_SLICE
+    return world, {name: TT.dense_inputs(o[:m], d[:m], None if alive is None else alive[:m])
+                   for name, (o, d, alive) in smoke.beyond_wavefronts(world, dev).items()
+                   if name != "bounce2"}
+
+
+@pytest.mark.parametrize("case", ["reference_and_sphere", "beyond"])
+def test_dense_kernel_unculled_equals_plain(dev, request, case):
     """Kernel 5 without culling against its plain version: the index on
-    every live ray of the reference scene (primaries and bounce-like rays,
-    a third dead) and of a 200k-triangle sphere seen from inside the room,
-    t within rtol 1e-5."""
-    world = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
-    ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
-    cases = [(world, TT.dense_inputs(ro, rd))]
-    g = np.random.default_rng(0)
-    ro = torch.tensor(g.uniform(-200, 200, (8192, 3)), dtype=torch.float32, device=dev)
-    rd = torch.tensor(g.normal(size=(8192, 3)), dtype=torch.float32, device=dev)
-    cases.append((world, TT.dense_inputs(ro, rd, torch.arange(8192, device=dev) % 3 != 0)))
-    cases.append(_dense_world_and_rays(dev, CameraConfig(**INSIDE), (64, 32)))
+    every live ray, t within rtol 1e-5, of the reference scene (primaries
+    and bounce-like rays, a third dead) and of a 200k-triangle sphere seen
+    from inside the room; or of the 2,163,864-triangle world's primaries
+    and bounce 1 from the room camera and from inside."""
+    if case == "beyond":
+        world, waves = request.getfixturevalue("beyond_waves")
+        cases = [(world, wave) for wave in waves.values()]
+    else:
+        world = bake_world_triangles(build_reference_scene().to_device(dev), fused_tile=None)
+        ro, rd = generate_rays(CameraConfig(), (256, 128), device=dev)
+        cases = [(world, TT.dense_inputs(ro, rd))]
+        g = np.random.default_rng(0)
+        ro = torch.tensor(g.uniform(-200, 200, (8192, 3)), dtype=torch.float32, device=dev)
+        rd = torch.tensor(g.normal(size=(8192, 3)), dtype=torch.float32, device=dev)
+        cases.append((world, TT.dense_inputs(ro, rd, torch.arange(8192, device=dev) % 3 != 0)))
+        cases.append(_dense_world_and_rays(dev, INSIDE_CAMERA, (64, 32)))
     for wld, (w, wo) in cases:
         t, idx = TT.nearest_hit(w, wo, wld.edge_mat, wld.plane_mat, wld.cluster_aabb, cull=False,
                                 n_valid=wld.n_valid, group_aabb=wld.group_aabb)
@@ -407,24 +460,32 @@ def test_dense_kernel_unculled_equals_plain(dev):
         assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[both].max().item() <= 1e-5
 
 
-def test_dense_kernel_culled_inside_differs_only_on_phantoms(dev):
-    """Kernel 5 with its gate from inside the room, where the rays meet a
-    200k-triangle sphere: it differs from its plain version only on rays
-    whose plain winner lies in a cluster box the ray's slab test does not
-    reach (a phantom accept of a sliver triangle far from the ray)."""
-    world, (w, wo) = _dense_world_and_rays(dev, CameraConfig(**INSIDE), (128, 64))
-    t, idx = TT.nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
-                            n_valid=world.n_valid, group_aabb=world.group_aabb)
-    tp, ip = TT.nearest_hit_plain(w, wo, world.edge_mat, world.plane_mat, world.n_valid)
-    live = wo[:, 4] > 0
-    assert (ip[live] >= 0).float().mean().item() > 0.5
-    differ = torch.nonzero(live & (idx != ip)).flatten()
-    box = world.cluster_aabb[:6, ip[differ].long() // TT.DENSE_RUN]  # (6, D)
-    reach = TT.slab_reaches(box, wo[differ, 0:3], w[differ, 0:3], TT._cluster_margin(world.cluster_aabb),
-                            torch.full((differ.numel(),), float("inf"), device=dev))
-    assert not reach.diagonal().any()
-    same = live & (idx == ip) & (ip >= 0)
-    assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[same].max().item() <= 1e-5
+@pytest.mark.parametrize("case", ["sphere", "beyond"])
+def test_dense_kernel_culled_inside_differs_only_on_phantoms(dev, request, case):
+    """Kernel 5 with its gate on the primaries from inside the room, where
+    the rays meet a 200k-triangle sphere (or the 2,163,864-triangle one):
+    it differs from its plain version only on rays whose plain winner lies
+    in a cluster box the ray's slab test does not reach (a phantom accept
+    of a sliver triangle far from the ray)."""
+    if case == "beyond":
+        world, waves = request.getfixturevalue("beyond_waves")
+        cases = [(world, waves["inside_primary"])]
+    else:
+        cases = [_dense_world_and_rays(dev, INSIDE_CAMERA, (128, 64))]
+    for world, (w, wo) in cases:
+        t, idx = TT.nearest_hit(w, wo, world.edge_mat, world.plane_mat, world.cluster_aabb,
+                                n_valid=world.n_valid, group_aabb=world.group_aabb)
+        tp, ip = TT.nearest_hit_plain(w, wo, world.edge_mat, world.plane_mat, world.n_valid)
+        live = wo[:, 4] > 0
+        assert (ip[live] >= 0).float().mean().item() > 0.5
+        differ = torch.nonzero(live & (idx != ip)).flatten()
+        box = world.cluster_aabb[:6, ip[differ].long() // TT.DENSE_RUN]  # (6, D)
+        reach = TT.slab_reaches(box, wo[differ, 0:3], w[differ, 0:3],
+                                TT._cluster_margin(world.cluster_aabb),
+                                torch.full((differ.numel(),), float("inf"), device=dev))
+        assert not reach.diagonal().any()
+        same = live & (idx == ip) & (ip >= 0)
+        assert ((t - tp).abs() / tp.abs().clamp_min(1e-30))[same].max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("scale", [1e-3, 1e3])
@@ -451,12 +512,18 @@ def big_world(dev):
     return world
 
 
-def test_worklist_kernels_above_313_blocks(dev, big_world):
+@pytest.mark.parametrize("blocks", [391, 701])
+def test_worklist_kernels_above_313_blocks(dev, request, blocks):
     """Kernel 1 on the primaries and kernel 2 on a sorted bounce-1
-    wavefront, at block granularity over 391-entry worklists."""
-    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
+    wavefront, at block granularity over 391-entry worklists, and over the
+    suite megascene's 701."""
+    if blocks == 391:
+        world = request.getfixturevalue("big_world")
+    else:
+        from pathtracerap_tpu_torch.bench_suite import suite_configs
 
-    world = big_world
+        world = bake_world_triangles(suite_configs()["megascene"]["scene"]().to_device(dev))
+    assert world.block_aabb.shape[0] == blocks
     ro, rd = generate_rays(_ROOM_CAMERA, (128, 64), device=dev)
     w16, lists = TT.primary_inputs(world, ro, rd)
     assert lists.shape[1] == world.block_aabb.shape[0]
@@ -472,11 +539,10 @@ def test_worklist_kernels_above_313_blocks(dev, big_world):
     pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
     ray_tile = TM.binned_ray_tile(world)
     lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
-    assert unit == world.tri_block and ray_tile == 512
+    assert unit == world.tri_block and ray_tile == 512 and lists.shape[1] == blocks
     _check_bounce(world, pack, u_flat[:, 4:8][pix], lists, unit, ray_tile)
     # from inside the room, where the bounce rays list many of the 391 blocks
-    ro, rd = generate_rays(CameraConfig(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0),
-                                        plane_y=(-48.0, 48.0), plane_z=120.0), (64, 32), device=dev)
+    ro, rd = generate_rays(INSIDE_CAMERA, (64, 32), device=dev)
     rd = normalize(rd)
     pack, u_flat = TM.first_wavefront(world, ro, rd, TT.trace_pallas(world, ro, rd), prng_key(2, dev),
                                       0, 4, ro.shape[0], 6, True, 0)
@@ -507,8 +573,6 @@ def test_trace_list_kernel_on_list_lengths(dev, big_world, length, debug):
     in a shuffled order per tile), one tile with an empty list: bit-equal
     to its plain version over the same blocks on every ray, a miss on
     every ray of the empty tile."""
-    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA
-
     world = big_world
     ro, rd = generate_rays(_ROOM_CAMERA, (128, 64), device=dev)
     w16, _ = TT.primary_inputs(world, ro, rd)
@@ -532,8 +596,7 @@ def test_trace_list_kernel_on_one_and_no_live_ray(dev, big_world):
     tile 0 and none in tile 1: bit-equal to the plain version on the live
     rays, a miss on every ray of the tile with none."""
     world = big_world
-    ro, rd = generate_rays(CameraConfig(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0),
-                                        plane_y=(-48.0, 48.0), plane_z=120.0), (64, 64), device=dev)
+    ro, rd = generate_rays(INSIDE_CAMERA, (64, 64), device=dev)
     alive = torch.ones(ro.shape[0], dtype=torch.bool, device=dev)
     alive[1:2 * TT.RAY_TILE] = False
     w16, lists = TT.primary_inputs(world, ro, rd, alive)
@@ -550,13 +613,11 @@ def test_trace_list_kernel_at_701_blocks(dev):
     """Kernel 1 on the suite's 701-block megascene, from its room camera
     and from inside the room: bit-equal to its plain version on every
     live ray, fast and debug forms."""
-    from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, suite_configs
+    from pathtracerap_tpu_torch.bench_suite import suite_configs
 
     world = bake_world_triangles(suite_configs()["megascene"]["scene"]().to_device(dev))
     assert world.block_aabb.shape[0] == 701
-    inside = CameraConfig(position=(0.0, 0.0, 190.0), plane_x=(-60.0, 60.0),
-                          plane_y=(-48.0, 48.0), plane_z=120.0)
-    for cam in (_ROOM_CAMERA, inside):
+    for cam in (_ROOM_CAMERA, INSIDE_CAMERA):
         ro, rd = generate_rays(cam, (64, 64), device=dev)
         w16, lists = TT.primary_inputs(world, ro, rd)
         for debug in (False, True):
@@ -565,20 +626,28 @@ def test_trace_list_kernel_at_701_blocks(dev):
             assert _bits_equal(out, ref, w16[:, 10] > 0)
 
 
-def test_pallas_render_on_gpu_matches_cpu(dev):
-    """The per-bounce pallas engine at 32x16 x 2 spp x 3 bounces through
-    kernels 1 and 5 against the same render on CPU tensors."""
+@pytest.mark.parametrize("bounces, per", [(3, 1), (5, 2)])
+def test_pallas_render_on_gpu_matches_cpu(dev, bounces, per):
+    """The per-bounce pallas engine at 32x16 x 2 spp through kernel 1 (with
+    the fused pack) and kernel 5 (without) against the same render on CPU
+    tensors: the sums over the samples, divided by ``per``, within 1e-4 on
+    average and 99.5 % of components within 1e-5."""
     from pathtracerap_tpu_torch.render.wavefront import render_accumulate
 
     out = {}
     for d in (dev, torch.device("cpu")):
         scene = build_reference_scene().to_device(d)
-        for tile in (512, None):
+        for tile, wrapper in ((512, TT.nearest_hit_fused), (None, TT.nearest_hit)):
             world = bake_world_triangles(scene, fused_tile=tile)
+            TT.nearest_hit_fused_plain.calls = TT.nearest_hit_plain.calls = 0
+            before = wrapper.launches
             out[d.type, tile] = render_accumulate(scene, prng_key(3, d), CameraConfig(), (32, 16),
-                                                  2, 3, engine="pallas", world=world).cpu()
+                                                  2, bounces, engine="pallas", world=world).cpu()
+            if d.type == "cuda":
+                assert wrapper.launches > before
+                assert TT.nearest_hit_fused_plain.calls == TT.nearest_hit_plain.calls == 0
     for tile in (512, None):
-        d = (out["cuda", tile] - out["cpu", tile]).abs()
+        d = (out["cuda", tile] - out["cpu", tile]).abs() / per
         assert d.mean().item() <= 1e-4 and (d <= 1e-5).float().mean().item() >= 0.995
 
 
@@ -609,21 +678,39 @@ def test_debug_trace_list_kernel_matches_fast_and_plain(dev, world):
 
 
 def test_debug_bounce_kernel_matches_fast(dev, world, wavefront):
+    """Kernel 2's explicit-mask form against its fast form on a sorted
+    wavefront and on a tile of the degenerate rays of
+    tests/test_debug_mode.py (4 bounces left)."""
+    from pathtracerap_tpu_torch.utils.debug import degenerate_rays
+
     pack, u = wavefront
     ray_tile = TM.binned_ray_tile(world)
-    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
-    fast = TM.bounce(pack, u, lists, unit, world, ray_tile, True, debug=False)
-    dbg = TM.bounce(pack, u, lists, unit, world, ray_tile, True, debug=True)
-    torch.cuda.synchronize()
-    assert torch.equal(dbg[0], fast[0]) and torch.equal(dbg[1], fast[1])
+    dro, drd = degenerate_rays(world)
+    degen = torch.cat([dro, drd, torch.ones_like(dro), torch.full_like(dro[:, :1], 4.0)], dim=1)
+    degen = torch.cat([degen, degen.new_zeros(ray_tile - degen.shape[0], 10)])
+    for pk, uu in ((pack, u), (degen, u[:ray_tile])):
+        lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pk, ray_tile)
+        fast = TM.bounce(pk, uu, lists, unit, world, ray_tile, True, debug=False)
+        dbg = TM.bounce(pk, uu, lists, unit, world, ray_tile, True, debug=True)
+        torch.cuda.synchronize()
+        assert torch.equal(dbg[0], fast[0]) and torch.equal(dbg[1], fast[1])
 
 
 def test_debug_fused_kernel_matches_fast(dev, world):
+    """Kernel 4's explicit-mask form against its fast form, contribution
+    and index stream, on jittered primaries and on a tile of the
+    degenerate rays."""
+    from pathtracerap_tpu_torch.utils.debug import degenerate_rays
+
     w16, prim, u = _fused_case(world, dev, CameraConfig(), (128, 64), True)
-    fast = TM.sample_fused(w16, prim, u[0], world, 5, False, False, debug=False)
-    dbg = TM.sample_fused(w16, prim, u[0], world, 5, False, False, debug=True)
-    torch.cuda.synchronize()
-    assert torch.equal(dbg, fast)
+    dro, drd = degenerate_rays(world)
+    w_deg = TT.ray_vectors(dro, normalize(drd))
+    w_deg = torch.cat([w_deg, w_deg.new_zeros(TT.RAY_TILE - w_deg.shape[0], 16)])
+    for w, pr, uu in ((w16, prim, u[0]), (w_deg, prim[:TT.RAY_TILE], u[0, :TT.RAY_TILE])):
+        fast = TM.sample_fused(w, pr, uu, world, 5, False, False, emit_idx=True, debug=False)
+        dbg = TM.sample_fused(w, pr, uu, world, 5, False, False, emit_idx=True, debug=True)
+        torch.cuda.synchronize()
+        assert torch.equal(dbg[0], fast[0]) and torch.equal(dbg[1], fast[1])
 
 
 # --------------------------------------------------------------------------
@@ -637,7 +724,7 @@ def big_wavefront(dev, big_world):
     the 391-block world's room: (pack (8192, 10), u (8192, 4)), 16 tiles
     of 512 rays."""
     world = big_world
-    ro, rd = generate_rays(CameraConfig(**INSIDE), (64, 32), device=dev)
+    ro, rd = generate_rays(INSIDE_CAMERA, (64, 32), device=dev)
     rd = normalize(rd)
     pack, u_flat = TM.first_wavefront(world, ro, rd, TT.trace_pallas(world, ro, rd),
                                       prng_key(3, dev), 0, 4, ro.shape[0], 6, True, 0)
@@ -665,7 +752,31 @@ _C2 = TM.bounce_chunk(512, 391, BIG_TILES)
 B2_LENGTHS = tuple(sorted({_C2 - 1, _C2, _C2 + 1, 2 * _C2 + 1, 4 * _C2, 9 * _C2 + 1, 391} - {0}))
 
 
-@pytest.mark.parametrize("length", B2_LENGTHS)
+def _check_highpoly_wavefronts(dev, debug):
+    """Kernel 2 on the real block lists of each of the 14 bounce wavefronts
+    of a frame of the benchmark's highpoly configuration (293 blocks;
+    chip_smoke.py's ``highpoly_wavefronts``), in both parities: each launch
+    split, the state on the first PLAIN_SLICE rays and the index on their
+    live ones bit-equal to its plain version, every ray to its launch with
+    one chunk a tile."""
+    smoke, m, n = W.smoke(), W.smoke().PLAIN_SLICE, 0
+    for world, (pack, u, lists, unit, ray_tile) in smoke.highpoly_wavefronts(dev):
+        assert world.block_aabb.shape[0] == 293 and unit == world.tri_block
+        live = pack[:m, 9] > 0
+        for parity in (True, False):
+            before = TM.bounce.split_launches
+            out = TM.bounce(pack, u, lists, unit, world, ray_tile, parity, debug)
+            torch.cuda.synchronize()
+            assert TM.bounce.split_launches == before + 1
+            ref = TM.bounce_plain(pack[:m], u[:m], world, parity, debug)
+            assert torch.equal(out[0][:m].view(torch.int32), ref[0].view(torch.int32))
+            assert torch.equal(out[1][:m][live], ref[1][live])
+            assert _same_bounce(out, _unsplit(world, pack, u, lists, unit, ray_tile, parity, debug))
+        n += 1
+    assert n == 14
+
+
+@pytest.mark.parametrize("length", B2_LENGTHS + ("highpoly",))
 @pytest.mark.parametrize("debug", [False, True], ids=["fast", "debug"])
 def test_bounce_kernel_on_list_lengths(dev, big_world, big_wavefront, length, debug):
     """Kernel 2 in block mode on worklists of ``length`` blocks (blocks 0
@@ -674,7 +785,11 @@ def test_bounce_kernel_on_list_lengths(dev, big_world, big_wavefront, length, de
     in both parities: bit-equal on every ray's state and every live ray's
     index to its plain version over the same blocks, and on every ray to
     its launch with one chunk a tile; every listed tile's chunks are
-    enqueued in one launch."""
+    enqueued in one launch.  ``length`` "highpoly": the lists of a real
+    frame (:func:`_check_highpoly_wavefronts`)."""
+    if length == "highpoly":
+        _check_highpoly_wavefronts(dev, debug)
+        return
     world = big_world
     pack, u = big_wavefront
     pack = pack.clone()
@@ -1207,6 +1322,7 @@ def test_grid_dda_kernel_live_rays(dev, scene_name):
                            plane_y=(-40.0, 40.0), plane_z=100.0)
     else:
         scene, cam = build_reference_scene().to_device(dev), CameraConfig()
+    assert DD.grid_trace_form(scene)["shared"]
     ro, rd = generate_rays(cam, (128, 96), device=dev)
     ro, rd = ro.contiguous(), rd.contiguous()
     n = ro.shape[0]
@@ -1269,7 +1385,8 @@ def test_parity_train_step_on_gpu_matches_cpu(dev, parity):
     """The parity engine's loss and its mat_color and model_to_world
     gradients at 32x16, 2 spp, 4 bounces through G1 against the same on
     CPU tensors (the plain version): loss rtol 1e-5, gradients rtol 1e-4,
-    as chip_smoke's train_step_vs_cpu holds them."""
+    as test_train_step_on_gpu_matches_cpu holds
+    them."""
     from pathtracerap_tpu_torch.diff import extract_params, loss_and_grad
     from pathtracerap_tpu_torch.kernels import dda as DD
 
