@@ -50,6 +50,7 @@ PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 # the INT32 pipe: 64 lanes a clock on each of the 132 SMs at 1980 MHz
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
 PAIR_FLOPS = 47  # per (ray, triangle): 22 FMAs, det, division, t/u/v, accept chain
+SHADE_FLOPS = 250  # per shaded ray: every scatter candidate and the selects
 GATE_FLOPS = 28  # per (live ray, box) test of kernel 5: 6 sub, 6 mul, 10 min/max, 6 for the tests
 # the profiling kernels at the scripts' sizes (scripts/prof_kernel_parts.py:26-30)
 PROF_N, PROF_R, PROF_TB, PROF_NB = 800256, 512, 512, 8
@@ -185,6 +186,7 @@ def list_pairs(lists, live, ray_tile: int, unit: int, n_valid: int) -> int:
 def wrappers() -> dict:
     """The kernels' wrappers by name; each counts its launches."""
     from pathtracerap_tpu_torch.kernels import dda, prof
+    from pathtracerap_tpu_torch.kernels import defer_shade as KS
     from pathtracerap_tpu_torch.kernels import megakernel as MK
     from pathtracerap_tpu_torch.kernels import rng as KR
     from pathtracerap_tpu_torch.kernels import trace as TT
@@ -192,7 +194,8 @@ def wrappers() -> dict:
     return {"trace_list": TT.nearest_hit_fused, "bounce": MK.bounce,
             "bounce_trace": MK.bounce_trace, "sample_fused": MK.sample_fused,
             "nearest_hit": TT.nearest_hit, "grid_dda": dda.grid_trace, "rng": KR.chunk_uniforms,
-            "prof_parts": prof.parts, "prof_empty": prof.empty, "prof_argmin": prof.argmin_int}
+            "prof_parts": prof.parts, "prof_empty": prof.empty, "prof_argmin": prof.argmin_int,
+            "defer_shade": KS.defer_shade}
 
 
 def plain_calls() -> int:
@@ -206,7 +209,8 @@ def plain_calls() -> int:
     return sum(f.calls for f in (
         TT.nearest_hit_fused_plain, MK.bounce_plain, MK.bounce_trace_plain, MK.sample_fused_plain,
         TT.nearest_hit_plain, prof.parts_plain, prof.empty_plain, prof.argmin_int_plain,
-        trace_parity, rng.chunk_uniforms_plain, rng.chunk_jitter_uniforms_plain))
+        trace_parity, rng.chunk_uniforms_plain, rng.chunk_jitter_uniforms_plain,
+        MK.defer_shade_plain, MK.primary_shade_plain))
 
 
 def timed(kernel: str, kern, plain=None, plain_reps: int = 10, held=None, **extra) -> dict:
@@ -393,19 +397,68 @@ def kernel3_timing(world, wavefront) -> dict:
                  **bound(PAIR_FLOPS * pairs, nbytes(pack, lists, world.ops_tri, *outs)))
 
 
-def highpoly_wavefronts(dev):
-    """The bounce wavefronts of one frame of the highpoly configuration
-    (``ptbench/configs/highpoly.json``: 149,733 triangles in 293 blocks,
-    block worklists, 512x512 x 1 spp x 8 bounces, two slabs, seed
-    HIGHPOLY_SEED): yields (world, (pack, uniforms, worklists, unit,
-    ray_tile)) for each of its 14, sorted and listed as the render does,
-    and advances the frame by kernel 2."""
+def defer_shade_timing(world, dev) -> dict:
+    """Kernel S1 on the reference step's first slab (SLAB rays, one sample,
+    as the train step's index forward runs it): the deferred form on the
+    sorted bounce-1 wavefront (kernel 3's winners, the stream read at row
+    pix), then the bounce-0 form on the slab's primaries; each beside its
+    plain twin on the same inputs, bit-equal on every ray, and bound by the
+    bytes a ray moves."""
     import torch
 
+    from pathtracerap_tpu_torch import CameraConfig
+    from pathtracerap_tpu_torch.kernels import defer_shade as KS
+    from pathtracerap_tpu_torch.kernels import megakernel as MK
+    from pathtracerap_tpu_torch.kernels.trace import _slab_margin, trace_pallas
+    from pathtracerap_tpu_torch.ops.math import normalize
+    from pathtracerap_tpu_torch.ops.rng import prng_key
+    from pathtracerap_tpu_torch.render.camera import generate_rays
+
+    ro, rd = generate_rays(CameraConfig(), RESOLUTION, device=dev)
+    ro, rd = ro[:SLAB], normalize(rd[:SLAB])
+    hits0 = trace_pallas(world, ro, rd)
+    pack, u_flat = MK.first_wavefront(world, ro, rd, hits0, prng_key(0, dev), 0, 1, SLAB,
+                                      MAX_BOUNCES, True, 0)
+    pix = torch.arange(SLAB, device=dev)
+    pack, pix = MK.sort_wavefront(pack, pix, *MK.scene_morton_bounds(world.block_aabb))
+    ray_tile = MK.binned_ray_tile(world)
+    lists, unit = MK.bounce_lists(world, _slab_margin(world.block_aabb), pack, ray_tile)
+    t, col1 = MK.bounce_trace(pack, lists, unit, world, ray_tile)
+
+    def kern():
+        return KS.defer_shade(pack, t, col1, world.attr_rows, u_flat, True, pix, 1)
+
+    out = kern()
+    # a ray reads its pack row, t, column and pix, 4 uniforms, and the
+    # winner's 16 attribute floats where it is live and hit; it writes its row
+    reads = int(((pack[:, 9] > 0) & (col1 > 0)).sum().item())
+    res = timed("defer_shade", kern,
+                lambda: MK.defer_shade_plain(world, pack, (t, col1), u_flat[:, 4:8][pix], True),
+                held=lambda k, p: same_bits("S1 deferred", k, p), rays=SLAB,
+                **bound(SHADE_FLOPS * SLAB, nbytes(pack, t, col1, pix, out) + 64 * reads + 16 * SLAB))
+    fields = [getattr(hits0, f) for f in ("t", "normal", "mat_type", "mat_color", "geom_normal",
+                                          "mat_ri")]
+
+    def kern0():
+        return KS.defer_shade_primary(hits0, ro, rd, u_flat, MAX_BOUNCES, True)
+
+    res["primary"] = timed(
+        "defer_shade", kern0, lambda: MK.primary_shade_plain(hits0, ro, rd, u_flat, MAX_BOUNCES, True),
+        held=lambda k, p: same_bits("S1 bounce 0", k, p), rays=SLAB,
+        **bound(SHADE_FLOPS * SLAB, nbytes(*fields, rd, kern0()) + 16 * SLAB))
+    return res
+
+
+def highpoly_slabs(dev):
+    """The primary slabs of one frame of the highpoly configuration
+    (``ptbench/configs/highpoly.json``: 149,733 triangles in 293 blocks,
+    512x512 x 1 spp x 8 bounces, two slabs, seed HIGHPOLY_SEED) as the
+    render traces them: yields (world, max_bounces, key, tile_base, ro, rd,
+    hits0) for each."""
     from ptbench import cells, scenes
     from pathtracerap_tpu_torch import RenderConfig, Renderer
     from pathtracerap_tpu_torch.kernels import megakernel as TM
-    from pathtracerap_tpu_torch.kernels.trace import _slab_margin, trace_pallas
+    from pathtracerap_tpu_torch.kernels.trace import trace_pallas
     from pathtracerap_tpu_torch.ops.math import normalize
     from pathtracerap_tpu_torch.ops.rng import RNG_TILE, prng_key
     from pathtracerap_tpu_torch.render.camera import generate_rays
@@ -417,18 +470,32 @@ def highpoly_wavefronts(dev):
                        engine=config["engine"])
     world = Renderer(scenes.port_scene(scenes.scene_inputs(config)).to_device(dev), cfg,
                      device=dev).world
-    ray_tile = TM.binned_ray_tile(world)
-    margin = _slab_margin(world.block_aabb)
-    lo, hi = TM.scene_morton_bounds(world.block_aabb)
     ro, rd = generate_rays(cfg.camera, cfg.resolution, device=dev)
     key = prng_key(HIGHPOLY_SEED, dev)
     slab = TM.BINNED_SLAB_TILES * RNG_TILE
     for s0 in range(0, ro.shape[0], slab):
         ro_s, rd_s = ro[s0:s0 + slab], normalize(rd[s0:s0 + slab])
-        pack, u_flat = TM.first_wavefront(world, ro_s, rd_s, trace_pallas(world, ro_s, rd_s), key, 0,
-                                          1, ro_s.shape[0], cfg.max_bounces, True, s0 // RNG_TILE)
+        yield world, cfg.max_bounces, key, s0 // RNG_TILE, ro_s, rd_s, trace_pallas(world, ro_s, rd_s)
+
+
+def highpoly_wavefronts(dev):
+    """The bounce wavefronts of one frame of the highpoly configuration
+    (:func:`highpoly_slabs`): yields (world, (pack, uniforms, worklists,
+    unit, ray_tile)) for each of its 14, sorted and listed as the render
+    does, and advances the frame by kernel 2."""
+    import torch
+
+    from pathtracerap_tpu_torch.kernels import megakernel as TM
+    from pathtracerap_tpu_torch.kernels.trace import _slab_margin
+
+    for world, bounces, key, tile_base, ro_s, rd_s, hits0 in highpoly_slabs(dev):
+        ray_tile = TM.binned_ray_tile(world)
+        margin = _slab_margin(world.block_aabb)
+        lo, hi = TM.scene_morton_bounds(world.block_aabb)
+        pack, u_flat = TM.first_wavefront(world, ro_s, rd_s, hits0, key, 0, 1, ro_s.shape[0],
+                                          bounces, True, tile_base)
         pix = torch.arange(pack.shape[0], device=dev)
-        for b in range(1, cfg.max_bounces):
+        for b in range(1, bounces):
             pack, pix = TM.sort_wavefront(pack, pix, lo, hi)
             lists, unit = TM.bounce_lists(world, margin, pack, ray_tile)
             u_b = u_flat[:, 4 * b:4 * b + 4][pix]
@@ -1096,6 +1163,7 @@ def main() -> int:
     b2_highpoly = highpoly_frame(dev)
     b3 = kernel3_timing(world, wavefront)
     del wavefront
+    s1 = defer_shade_timing(world, dev)
     b4 = kernel4_timings(world, dev)
     big = build_highpoly_scene(subdiv=BEYOND_SUBDIV, use_asset=False).to_device(dev)
     b5 = kernel5_timings(big, dev)
@@ -1183,6 +1251,13 @@ def main() -> int:
                                        "reference_render", "quality_render"), r1["cornell"],
                          reference_step=r1["reference_step"], int_ops_per_uniform=RNG_INT_OPS,
                          **r1["build"]))
+    # S1 has no Pallas counterpart: JAX shades these bounces in XLA
+    kernels.append(entry("defer_shade", "defer_shade.cu",
+                         "pathtracerap_tpu/pallas/megakernel.py:1957 (XLA; no pallas_call)",
+                         main_launches("defer_shade", "reference_step", "reference_render",
+                                       "highpoly_frame"), s1, primary=s1["primary"],
+                         deferred_form=resources("defer_shade_kernel", 1),
+                         primary_form=resources("primary_shade_kernel", 1)))
     for k in kernels:
         check(k["ms"] >= k["bound_ms"], f"{k['name']}: {k['ms']} ms not below its bound {k['bound_ms']}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -177,7 +177,7 @@ __global__ void bounce_kernel(const float* __restrict__ state,    // (N, 10)
     const bool alive = s[9] > 0.0f;
     Attrs a = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}, 0.f, 0.f};
     if (alive && best_idx[k] >= 0) a = read_attrs(attr, attr_cols, best_idx[k]);
-    shade(s, best[k], a, uni + ray * 4, parity != 0);  // a dead ray passes through
+    shade<false>(s, best[k], a, uni + ray * 4, parity != 0);  // a dead ray passes through
     for (int c = 0; c < 10; ++c) out[ray * 10 + c] = s[c];
     idx_out[ray] = alive ? best_idx[k] : -1;
   }

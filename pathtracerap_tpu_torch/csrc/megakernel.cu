@@ -271,7 +271,7 @@ sample_fused_kernel(const float* __restrict__ w16,      // (N, 16) [dir, o x dir
       }
       if (idx_out) idx_out[ray * max_bounces + b] = alive ? idx1 : 0;
       const float* u = uni + ((size_t)smp * n + ray) * ucols;
-      shade(s, t, a, u + 4 * b, parity != 0);  // a dead ray passes through
+      shade<false>(s, t, a, u + 4 * b, parity != 0);  // a dead ray passes through
     }
     for (int c = 0; c < 3; ++c) {
       const float v = sqrtf(clamp_min(s[6 + c], 0.0f));

@@ -1,10 +1,15 @@
-// Shading device code shared by kernels 2 and 4 (bounce.cu, megakernel.cu).
+// Shading device code shared by kernels 2, 4 and S1 (bounce.cu,
+// megakernel.cu, defer_shade.cu).
 //
-// One shading step of one ray, render/shade.py::shade with the rsqrt
-// normalization (the TPU kernels' _shade_inkernel), operation by operation:
-// fmaf where the plain version fuses (dot and cross products), so that the
-// kernels and their plain versions round alike.  The material constants
-// mirror constants.py and scene/types.py::MaterialType.
+// One shading step of one ray, render/shade.py::shade, operation by
+// operation: fmaf where the plain version fuses (dot and cross products),
+// so that the kernels and their plain versions round alike.  The
+// normalization is a template parameter, fixed by the shading a kernel
+// replaces: kernels 2 and 4 take the rsqrt form (Exact false; the TPU
+// kernels' _shade_inkernel, ops/math.py normalize_rsqrt), S1 the exact one
+// (Exact true; ops/math.py normalize, the XLA shading of the JAX package's
+// deferred bounce).  The material constants mirror constants.py and
+// scene/types.py::MaterialType.
 //
 // Everything here sits in an anonymous namespace: each kernel source gets
 // its own copy, and nothing is linked across sources.
@@ -44,8 +49,14 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
           fmaf(a.x, b.y, -(a.y * b.x))};
 }
 
-// v * rsqrt(max(|v|^2, 1e-30)): finite at v == 0
+// Exact: v / sqrt(|v|^2), with IEEE sqrtf and division; else v * rsqrt(max(
+// |v|^2, 1e-30)), finite at v == 0
+template <bool Exact>
 __device__ __forceinline__ V3 norm(V3 v) {
+  if (Exact) {
+    const float len = sqrtf(dot(v, v));
+    return {v.x / len, v.y / len, v.z / len};
+  }
   return scale(rsqrtf(clamp_min(dot(v, v), 1e-30f)), v);
 }
 
@@ -55,6 +66,7 @@ __device__ __forceinline__ V3 reflect(V3 i, V3 n, bool parity) {
   return sub(parity ? n : i, k);
 }
 
+template <bool Exact>
 __device__ V3 cosine_hemisphere(V3 n, float u0, float u1) {
   const float up = sqrtf(clamp_min(u0, 0.0f));
   const float over = sqrtf(clamp_min(1.0f - up * up, 0.0f));
@@ -62,23 +74,25 @@ __device__ V3 cosine_hemisphere(V3 n, float u0, float u1) {
   const V3 seed = fabsf(n.x) < kSqrt13   ? V3{1.f, 0.f, 0.f}
                   : fabsf(n.y) < kSqrt13 ? V3{0.f, 1.f, 0.f}
                                          : V3{0.f, 0.f, 1.f};
-  const V3 t1 = norm(cross(n, seed));
-  const V3 t2 = norm(cross(n, t1));
+  const V3 t1 = norm<Exact>(cross(n, seed));
+  const V3 t2 = norm<Exact>(cross(n, t1));
   return add(add(scale(up, n), scale(cosf(around) * over, t1)), scale(sinf(around) * over, t2));
 }
 
+template <bool Exact>
 __device__ V3 metal_scatter(V3 n, V3 d, float u2, float u3) {
   const float phi = kTwoPi * u2;
   const float cos_t = powf(clamp_min(1.0f - u3, 0.0f), kInvPhong);
   const float sin_t = sqrtf(clamp_min(1.0f - cos_t * cos_t, 0.0f));
-  const V3 w = norm(sub(d, scale(2.0f * dot(n, d), n)));
+  const V3 w = norm<Exact>(sub(d, scale(2.0f * dot(n, d), n)));
   const V3 seed = fabsf(w.x) > 0.1f ? V3{0.f, 1.f, 0.f} : V3{1.f, 0.f, 0.f};
-  const V3 u = norm(cross(seed, w));
+  const V3 u = norm<Exact>(cross(seed, w));
   const V3 v = cross(w, u);
   return add(add(scale(cosf(phi) * sin_t, u), scale(sinf(phi) * sin_t, v)), scale(cos_t, w));
 }
 
 // Fresnel-roulette dielectric (quality mode); orient is the spawn side
+template <bool Exact>
 __device__ V3 refract_scatter(V3 n, V3 d, float ri, float u3, float& orient) {
   const bool entering = dot(d, n) < 0.0f;
   const V3 n_eff = entering ? n : neg(n);
@@ -88,7 +102,7 @@ __device__ V3 refract_scatter(V3 n, V3 d, float ri, float u3, float& orient) {
   const float k = 1.0f - eta * eta * (1.0f - cos_i * cos_i);
   const bool tir = k < 0.0f;
   const float cos_t = sqrtf(clamp_min(k, 0.0f));
-  const V3 refr = norm(add(scale(eta, d), scale(eta * cos_i - cos_t, n_eff)));
+  const V3 refr = norm<Exact>(add(scale(eta, d), scale(eta * cos_i - cos_t, n_eff)));
   const float q = (ri - 1.0f) / (ri + 1.0f);
   const float r0 = q * q;
   const float cos_x = entering ? cos_i : cos_t;
@@ -119,6 +133,7 @@ __device__ __forceinline__ Attrs read_attrs(const float* __restrict__ attr, int 
 }
 
 // One shading step of one ray (render/shade.py::shade; Renderer.cpp:411-479).
+template <bool Exact>
 __device__ void shade(float* s, float t, const Attrs& a, const float* u, bool parity) {
   const V3 orig = {s[0], s[1], s[2]}, dir = {s[3], s[4], s[5]};
   const V3 color = {s[6], s[7], s[8]};
@@ -128,7 +143,7 @@ __device__ void shade(float* s, float t, const Attrs& a, const float* u, bool pa
   const V3 unit_z = {0.f, 0.f, 1.f};
   const V3 n = hit ? a.n : unit_z;
 
-  const V3 d = norm(dir);
+  const V3 d = norm<Exact>(dir);
   const V3 pt = add(orig, scale(t, d));
   V3 spawn = add(pt, scale(kSpawn, n));
 
@@ -136,16 +151,16 @@ __device__ void shade(float* s, float t, const Attrs& a, const float* u, bool pa
   const bool is_diffuse = mt == kDiffuse, is_metal = mt == kMetal, is_coat = mt == kCoat;
   const bool is_emissive = mt == kEmissive, is_reflective = mt == kReflective;
 
-  const V3 dir_diffuse = cosine_hemisphere(n, u[0], u[1]);
+  const V3 dir_diffuse = cosine_hemisphere<Exact>(n, u[0], u[1]);
   const V3 dir_refl = reflect(d, n, parity);
   bool scatters = is_diffuse || is_metal || is_coat || is_reflective;
   V3 new_dir;
   if (is_diffuse) {
     new_dir = dir_diffuse;
   } else if (is_metal) {
-    new_dir = metal_scatter(n, d, u[2], u[3]);
+    new_dir = metal_scatter<Exact>(n, d, u[2], u[3]);
   } else if (is_coat) {
-    new_dir = pick(u[0] < 0.5f, dir_refl, cosine_hemisphere(n, u[1], u[2]));
+    new_dir = pick(u[0] < 0.5f, dir_refl, cosine_hemisphere<Exact>(n, u[1], u[2]));
   } else {
     new_dir = dir_refl;
   }
@@ -154,7 +169,7 @@ __device__ void shade(float* s, float t, const Attrs& a, const float* u, bool pa
     scatters = scatters || is_specular || is_refractive;
     if (is_refractive) {
       float orient;
-      new_dir = refract_scatter(n, d, a.ri, u[3], orient);
+      new_dir = refract_scatter<Exact>(n, d, a.ri, u[3], orient);
       spawn = add(pt, scale(kSpawn * orient, n));
     } else if (is_specular) {
       new_dir = dir_refl;

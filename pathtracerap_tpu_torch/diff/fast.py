@@ -229,7 +229,7 @@ def make_idxs_multi(world, ro_p, rd_p, hits0, idx_col0, key, s0: int, ns: int, n
             lists, unit = MK.bounce_lists(world, margin, pack, ray_tile)
         tg = MK.bounce_trace(pack, lists, unit, world, ray_tile)
         cols.append(tg[1][MK.inverse_permutation(pix)])  # in the original ray order
-        pack = MK.defer_shade_apply(world, pack, tg, u_flat[:, 4 * b:4 * b + 4][pix], parity)
+        pack = MK.defer_shade_apply(world, pack, tg, u_flat, parity, pix, b)
     idxs = torch.stack(cols, dim=1).reshape(ns, n_pad, max_bounces)
     return idxs, u_flat.reshape(ns, n_pad, 4 * max_bounces)
 

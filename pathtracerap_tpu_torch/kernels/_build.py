@@ -69,6 +69,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ptt_grid_dda_blocks_per_sm.argtypes = [i, i, p]
     lib.ptt_chunk_uniforms.restype = i
     lib.ptt_chunk_uniforms.argtypes = [p, u, i, i, i, i, i, i, u, p, p]
+    lib.ptt_defer_shade.restype = i
+    lib.ptt_defer_shade.argtypes = [p, p, p, p, i, p, i, i, p, i, i, p, p]
+    lib.ptt_defer_shade_primary.restype = i
+    lib.ptt_defer_shade_primary.argtypes = [*[p] * 7, i, p, i, i, i, p, i, i, i, p, p]
     lib.ptt_error_string.restype = ctypes.c_char_p
     lib.ptt_error_string.argtypes = [i]
     return lib

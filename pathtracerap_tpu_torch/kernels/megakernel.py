@@ -6,7 +6,9 @@ plain torch, and kernel 2, ``csrc/bounce.cu``, traces and shades one
 bounce.  It replaces the TPU kernel ``_bounce_kernel``.  The
 differentiable forward (:mod:`..diff.fast`) defers the shading instead:
 kernel 3, ``csrc/bounce_trace.cu``, only traces (it replaces
-``_bounce_trace_kernel``) and :func:`defer_shade_apply` shades in torch.
+``_bounce_trace_kernel``) and :func:`defer_shade_apply` shades: kernel S1,
+``csrc/defer_shade.cu``, on the card (as it shades the binned loops'
+bounce 0, :func:`first_wavefront`).
 
 **Fused.** Kernel 4, ``csrc/megakernel.cu``, runs a whole sample, every
 bounce of it, in one launch and sweeps every real block per bounce: it
@@ -39,6 +41,7 @@ from ..scene.types import WorldTriangles
 from ..utils.debug import resolve_debug
 from ..utils.profiling import annotate
 from . import _build
+from . import defer_shade as KS
 from .trace import (
     RAY_TILE, SWEEP_RUN, _check, _slab_margin, _tile_block_lists, nearest_hit_fused_plain,
     ray_vectors, sweep_operands, trace_pallas,
@@ -342,31 +345,52 @@ def bounce_trace(
 bounce_trace.launches = 0
 
 
-def defer_shade_apply(world: WorldTriangles, pack: torch.Tensor, tg, u: torch.Tensor, parity: bool):
-    """The shading half of a deferred bounce: gather the winner's
+def defer_shade_plain(world: WorldTriangles, pack: torch.Tensor, tg, u: torch.Tensor,
+                      parity: bool):
+    """Plain twin of kernel S1's deferred form: gather the winner's
     attribute rows for ``tg = (t, column + 1)`` and advance the (N, 10)
-    state with this bounce's (N, 4) uniforms.  Shades with
+    state with this bounce's (N, 4) uniforms, in torch ops.  Shades with
     :func:`..render.shade.shade`'s default normalization: the JAX package
     shades the deferred bounce in XLA, not in the kernel."""
+    defer_shade_plain.calls += 1
     t, col1 = tg
+    hit = col1 > 0
+    h3 = hit[:, None]
+    a = world.attr_rows[:, torch.clamp(col1 - 1, min=0).long()].T  # (N, 16)
+    rec = HitRecord(
+        t=torch.where(hit, t, F_MAX),
+        normal=torch.where(h3, a[:, 0:3], 0.0),
+        mat_type=torch.where(hit, a[:, 3].to(torch.int32), 0),
+        mat_color=torch.where(h3, a[:, 4:7], 0.0),
+        geom_normal=torch.where(h3, a[:, 7:10], 0.0),
+        mat_ri=torch.where(hit, a[:, 11], 1.5),
+    )
+    state = RayState(
+        orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9],
+        remaining=pack[:, 9].to(torch.int32),
+    )
+    s = shade(state, rec, u, parity=parity)
+    return torch.cat([s.orig, s.dir, s.color, s.remaining.to(torch.float32)[:, None]], dim=1)
+
+
+defer_shade_plain.calls = 0
+
+
+def defer_shade_apply(world: WorldTriangles, pack: torch.Tensor, tg, u: torch.Tensor, parity: bool,
+                      pix=None, b: int = 0):
+    """The shading half of a deferred bounce: the next (N, 10) state of
+    ``pack`` after the bounce whose winner kernel 3 found, ``tg = (t,
+    column + 1)``.  ``u``: this bounce's (N, 4) uniforms, or with ``pix``
+    the wavefront's (M, 4 * max_bounces) stream, of which ray i takes row
+    ``pix[i]``, column block ``b``.  Kernel S1 (:func:`.defer_shade.defer_shade`,
+    one launch) for tensors on the card, its plain twin
+    :func:`defer_shade_plain` for CPU ones."""
     with annotate("ptap.shade"):
-        hit = col1 > 0
-        h3 = hit[:, None]
-        a = world.attr_rows[:, torch.clamp(col1 - 1, min=0).long()].T  # (N, 16)
-        rec = HitRecord(
-            t=torch.where(hit, t, F_MAX),
-            normal=torch.where(h3, a[:, 0:3], 0.0),
-            mat_type=torch.where(hit, a[:, 3].to(torch.int32), 0),
-            mat_color=torch.where(h3, a[:, 4:7], 0.0),
-            geom_normal=torch.where(h3, a[:, 7:10], 0.0),
-            mat_ri=torch.where(hit, a[:, 11], 1.5),
-        )
-        state = RayState(
-            orig=pack[:, 0:3], dir=pack[:, 3:6], color=pack[:, 6:9],
-            remaining=pack[:, 9].to(torch.int32),
-        )
-        s = shade(state, rec, u, parity=parity)
-        return torch.cat([s.orig, s.dir, s.color, s.remaining.to(torch.float32)[:, None]], dim=1)
+        if pack.device.type != "cpu":
+            return KS.defer_shade(pack, tg[0], tg[1], world.attr_rows, u, parity, pix, b)
+        if pix is not None:
+            u = u[:, 4 * b:4 * b + 4][pix]
+        return defer_shade_plain(world, pack, tg, u, parity)
 
 
 def sample_groups(n_samples: int):
@@ -383,26 +407,43 @@ def inverse_permutation(pix: torch.Tensor) -> torch.Tensor:
     return inv
 
 
-def first_wavefront(world, ro_p, rd_p, hits0, key, s0: int, ns: int, n: int, max_bounces: int,
-                    parity: bool, tile_base: int):
-    """Samples ``s0 .. s0 + ns`` as one wavefront after bounce 0: the
-    (ns * n_pad, 10) state pack and its (ns * n_pad, 4 * max_bounces)
-    uniforms, rows in (sample, ray) order."""
-    n_pad = ro_p.shape[0]
+def primary_shade_plain(hits0, ro_p, rd_p, u_flat, max_bounces: int, parity: bool):
+    """Plain twin of kernel S1's bounce 0: the (ns * n_pad, 10) state pack
+    of ``ns = u_flat.shape[0] // n_pad`` samples of the primary rays, each
+    shaded from its hit record ``hits0`` with its row of ``u_flat``'s
+    first column block, in torch ops."""
+    primary_shade_plain.calls += 1
+    ns = u_flat.shape[0] // ro_p.shape[0]
 
     def big(x):
         return x.repeat((ns,) + (1,) * (x.dim() - 1))
 
+    state = RayState.primary(big(ro_p), big(rd_p), max_bounces)
+    hits = HitRecord(**{f: None if getattr(hits0, f) is None else big(getattr(hits0, f))
+                        for f in HitRecord.__dataclass_fields__})
+    state = shade(state, hits, u_flat[:, 0:4], parity=parity)
+    return torch.cat(
+        [state.orig, state.dir, state.color, state.remaining.to(torch.float32)[:, None]], dim=1
+    )
+
+
+primary_shade_plain.calls = 0
+
+
+def first_wavefront(world, ro_p, rd_p, hits0, key, s0: int, ns: int, n: int, max_bounces: int,
+                    parity: bool, tile_base: int):
+    """Samples ``s0 .. s0 + ns`` as one wavefront after bounce 0: the
+    (ns * n_pad, 10) state pack and its (ns * n_pad, 4 * max_bounces)
+    uniforms, rows in (sample, ray) order.  Bounce 0 is shaded by kernel
+    S1 (:func:`.defer_shade.defer_shade_primary`) for tensors on the card,
+    by its plain twin :func:`primary_shade_plain` for CPU ones."""
+    n_pad = ro_p.shape[0]
     with annotate("ptap.shade"):
         u_flat = chunk_uniforms(key, range(s0, s0 + ns), max_bounces, n, n_pad, tile_base)
-        state = RayState.primary(big(ro_p), big(rd_p), max_bounces)
-        hits = HitRecord(**{f: None if getattr(hits0, f) is None else big(getattr(hits0, f))
-                            for f in HitRecord.__dataclass_fields__})
-        state = shade(state, hits, u_flat[:, 0:4], parity=parity)
-        pack = torch.cat(
-            [state.orig, state.dir, state.color, state.remaining.to(torch.float32)[:, None]],
-            dim=1,
-        )
+        if ro_p.device.type != "cpu":
+            pack = KS.defer_shade_primary(hits0, ro_p, rd_p, u_flat, max_bounces, parity)
+        else:
+            pack = primary_shade_plain(hits0, ro_p, rd_p, u_flat, max_bounces, parity)
     return pack, u_flat
 
 

@@ -11,6 +11,7 @@ This file imports no JAX.
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from pathtracerap_tpu_torch import (
     CameraConfig, RenderConfig, Renderer, build_cornell_box_scene, build_reference_scene, read_bmp,
 )
 from pathtracerap_tpu_torch.bench_suite import _ROOM_CAMERA, INSIDE_CAMERA, suite_configs
+from pathtracerap_tpu_torch.kernels import defer_shade as KS
 from pathtracerap_tpu_torch.kernels import megakernel as TM
 from pathtracerap_tpu_torch.kernels import trace as TT
 from pathtracerap_tpu_torch.ops.math import normalize, normalize_rsqrt
@@ -196,6 +198,154 @@ def test_train_step_on_gpu_matches_cpu(dev):
     np.testing.assert_allclose(l_g.item(), l_c.item(), rtol=1e-5)
     np.testing.assert_allclose(g_g["mat_color"].cpu().numpy(), g_c["mat_color"].numpy(),
                                rtol=1e-4, atol=1e-7)
+
+
+# --------------------------------------------------------------------------
+# kernel S1: the index forward's shading
+# --------------------------------------------------------------------------
+
+
+def _same_state(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def step_slab(dev, world):
+    """The reference step's first slab, 131,072 of the 1000x800 primaries
+    (the camera's eye expanded to every ray), as its index forward traces
+    it: (ro, rd, hits0)."""
+    ro, rd = generate_rays(CameraConfig(), (1000, 800), device=dev)
+    slab = TM.BINNED_SLAB_TILES * 8192
+    ro, rd = ro[:slab], normalize(rd[:slab])
+    return ro, rd, TT.trace_pallas(world, ro, rd)
+
+
+def _step_wavefront(world, step_slab, seed, parity):
+    """The step slab's one-sample wavefront after bounce 0: (pack, uniform
+    stream, pix), unsorted."""
+    ro, rd, hits0 = step_slab
+    pack, u_flat = TM.first_wavefront(world, ro, rd, hits0, prng_key(seed, ro.device), 0, 1,
+                                      ro.shape[0], 5, parity, 0)
+    return pack, u_flat, torch.arange(pack.shape[0], device=ro.device)
+
+
+@pytest.mark.parametrize("parity", [True, False], ids=["parity", "quality"])
+def test_defer_shade_kernel_on_the_step_wavefronts(dev, world, step_slab, parity):
+    """S1's deferred form on the 4 deferred bounces of the reference step's
+    first slab, as ``make_idxs_multi`` runs them: each next pack bit-equal
+    on every ray to its plain twin's (given the uniforms gathered, S1 the
+    stream and pix), one launch a bounce; the slab advances by S1's."""
+    pack, u_flat, pix = _step_wavefront(world, step_slab, 4, parity)
+    ray_tile = TM.binned_ray_tile(world)
+    margin = TT._slab_margin(world.block_aabb)
+    for b in range(1, 5):
+        pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
+        assert (pack[:, 9] > 0).any()
+        lists, unit = TM.bounce_lists(world, margin, pack, ray_tile)
+        tg = TM.bounce_trace(pack, lists, unit, world, ray_tile)
+        before = KS.defer_shade.launches
+        out = TM.defer_shade_apply(world, pack, tg, u_flat, parity, pix, b)
+        torch.cuda.synchronize()
+        assert KS.defer_shade.launches == before + 1
+        ref = TM.defer_shade_plain(world, pack, tg, u_flat[:, 4 * b:4 * b + 4][pix], parity)
+        assert _same_state(out, ref), f"bounce {b}"
+        pack = out
+
+
+@pytest.mark.parametrize("parity", [True, False], ids=["parity", "quality"])
+def test_defer_shade_kernel_passes_dead_rays_unread(dev, world, step_slab, parity):
+    """Bounce 1 of the step slab with its first tile dead and a third of the
+    other rays, their kernel-3 columns garbage (anywhere in 0 .. C, which
+    the plain twin gathers) and their t NaN, infinite, negative or finite:
+    S1 (the (N, 4) form) bit-equal to its plain twin on every ray, and each
+    dead ray's state passed through."""
+    pack, u_flat, pix = _step_wavefront(world, step_slab, 5, parity)
+    pack, pix = TM.sort_wavefront(pack, pix, *TM.scene_morton_bounds(world.block_aabb))
+    ray_tile = TM.binned_ray_tile(world)
+    g = torch.Generator().manual_seed(5)
+    n = pack.shape[0]
+    dead = torch.rand(n, generator=g) < 1 / 3
+    dead[:ray_tile] = True
+    dead = dead.to(dev)
+    pack = torch.where(dead[:, None] & (torch.arange(10, device=dev) == 9), 0.0, pack)
+    lists, unit = TM.bounce_lists(world, TT._slab_margin(world.block_aabb), pack, ray_tile)
+    t, col1 = TM.bounce_trace(pack, lists, unit, world, ray_tile)
+    k = int(dead.sum().item())
+    junk_t = torch.tensor([float("nan"), float("inf"), -3.0, 0.0, 250.0, TT.F_MAX])
+    t = t.masked_scatter(dead, junk_t[torch.randint(0, 6, (k,), generator=g)].to(dev))
+    cols = world.attr_rows.shape[1]
+    col1 = col1.masked_scatter(dead, torch.randint(0, cols + 1, (k,), generator=g).int().to(dev))
+    u = u_flat[:, 4:8][pix]
+    out = TM.defer_shade_apply(world, pack, (t, col1), u, parity)
+    ref = TM.defer_shade_plain(world, pack, (t, col1), u, parity)
+    assert _same_state(out, ref)
+    assert _same_state(out[dead], pack[dead]) and not _same_state(out[~dead], pack[~dead])
+
+
+@pytest.mark.parametrize("case", ["ns1", "ns4", "highpoly"])
+def test_defer_shade_kernel_bounce0(dev, step_slab, case):
+    """S1's bounce-0 form against its plain twin, bit for bit on every row,
+    parity and quality: the reference step's slab as 1 and as 4 samples,
+    and both slabs of a highpoly frame (``chip_smoke.py``'s
+    ``highpoly_slabs``: 293 blocks, 8 bounces, RNG tiles from 0 and 16); one launch
+    a call."""
+    if case == "highpoly":
+        slabs = [(ro, rd, hits0, key, 1, bounces, tb)
+                 for _, bounces, key, tb, ro, rd, hits0 in W.smoke().highpoly_slabs(dev)]
+        assert len(slabs) == 2 and slabs[1][-1] == 16
+    else:
+        slabs = [(*step_slab, prng_key(6, dev), int(case[2:]), 5, 0)]
+    for ro, rd, hits0, key, ns, bounces, tile_base in slabs:
+        n = ro.shape[0]
+        u_flat = chunk_uniforms(key, range(0, ns), bounces, n, n, tile_base)
+        for parity in (True, False):
+            before = KS.defer_shade.launches
+            out = KS.defer_shade_primary(hits0, ro, rd, u_flat, bounces, parity)
+            torch.cuda.synchronize()
+            assert KS.defer_shade.launches == before + 1 and out.shape == (ns * n, 10)
+            ref = TM.primary_shade_plain(hits0, ro, rd, u_flat, bounces, parity)
+            assert _same_state(out, ref)
+
+
+def _torch_shading(monkeypatch):
+    """S1's wrappers replaced by their plain twins on the same card tensors:
+    the step's shading in torch ops, as before S1."""
+    monkeypatch.setattr(KS, "defer_shade", lambda pack, t, col1, attr, u, parity, pix=None, b=0:
+                        TM.defer_shade_plain(types.SimpleNamespace(attr_rows=attr), pack, (t, col1),
+                                             u if pix is None else u[:, 4 * b:4 * b + 4][pix],
+                                             parity))
+    monkeypatch.setattr(KS, "defer_shade_primary", TM.primary_shade_plain)
+
+
+def test_train_step_with_s1_equals_the_torch_shading(dev, monkeypatch):
+    """The reference step at the benchmark's shape (1000x800, 2 spp, 5
+    bounces, ``mat_color``) with S1 and with the torch shading on the same
+    card: ``make_idxs_multi``'s index streams and uniforms bit-equal on
+    every call (7 slabs, 2 sample groups each), the loss bit-equal, the
+    gradient within rtol 1e-6 (the backward's ``index_add_`` sums in any
+    order); S1 launches 5 times a call, the torch path never."""
+    from pathtracerap_tpu_torch.diff import extract_params, fast as TF, loss_and_grad
+
+    scene = build_reference_scene().to_device(dev)
+    target = torch.full((800_000, 3), 0.25, device=dev)
+    real, s1, out = TF.make_idxs_multi, KS.defer_shade, {}
+    for path in ("s1", "torch"):
+        calls = []
+        monkeypatch.setattr(TF, "make_idxs_multi", lambda *a: calls.append(real(*a)) or calls[-1])
+        if path == "torch":
+            _torch_shading(monkeypatch)
+        before = s1.launches
+        loss, grads = loss_and_grad(extract_params(scene, ("mat_color",)), scene, target,
+                                    prng_key(11, dev), CameraConfig(), (1000, 800), 2, 5,
+                                    engine="fused")
+        torch.cuda.synchronize()
+        out[path] = (calls, loss, grads["mat_color"], s1.launches - before)
+    (c1, l1, g1, n1), (c2, l2, g2, n2) = out["s1"], out["torch"]
+    assert len(c1) == len(c2) == 14 and (n1, n2) == (70, 0)
+    for (i1, u1), (i2, u2) in zip(c1, c2):
+        assert torch.equal(i1, i2) and _same_state(u1, u2)
+    assert _same_state(l1, l2)
+    torch.testing.assert_close(g1, g2, rtol=1e-6, atol=0.0)
 
 
 @pytest.mark.parametrize("res, spp, seed, f, g", [
